@@ -1,0 +1,7 @@
+// The CUDA runtime's message for an error code that a launcher returned, so
+// the Python wrappers can raise with it.
+#include <cuda_runtime.h>
+
+extern "C" const char* repro_error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}

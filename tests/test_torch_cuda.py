@@ -1,0 +1,93 @@
+"""repro_torch on an NVIDIA card: each CUDA kernel against its plain PyTorch
+version on the card (exact equality — the functions are integer-valued),
+every launch counted, and the whole ITERATIVE/DATAFLOW path on the card
+equal to the same path on the CPU. Every test here needs a card and skips
+without one; the file imports neither JAX nor the reference, so it runs on
+a machine that has only torch:
+
+    PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
+"""
+import numpy as np
+import pytest
+import torch
+
+import repro_torch.core as T
+from repro_torch.kernels import (COLOR_MASK, conflict_mask,
+                                 conflict_mask_plain, firstfit,
+                                 firstfit_plain, launch_counts, pack_entries,
+                                 round_fused, round_fused_plain)
+
+pytestmark = pytest.mark.cuda
+
+# (rows, width, words, color range): ragged V, D=1, W=1 and W=63 with full
+# rows (INT32_MAX), negative and >= 32*W colors, one row
+SLABS = [(37, 9, 2, (-5, 73)), (13, 1, 1, (-2, 40)), (21, 31, 1, None),
+         (18, 2048, 63, None), (50, 12, 3, (-100, 196)), (1, 33, 2, (0, 40))]
+
+
+@pytest.fixture
+def card():
+    # decided at run time, never at import: every test worker collects the
+    # same tests
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card: run on the card with "
+                    "`python3 chip_smoke.py` or `pytest -m cuda`")
+    return torch.device("cuda")
+
+
+def _slab(v, d, words, colors, seed):
+    rng = np.random.default_rng(seed)
+    if colors is None:  # the first rows hold every color 1..32*words-1
+        x = rng.integers(-3, 32 * words + 7, size=(v, d)).astype(np.int32)
+        n = 32 * words - 1
+        for r in range(min(v, 4)):
+            x[r, :n] = rng.permutation(np.arange(1, n + 1))
+    else:
+        x = rng.integers(*colors, size=(v, d)).astype(np.int32)
+    return x
+
+
+def _equal(a, b):
+    np.testing.assert_array_equal(a.cpu().numpy(), b.cpu().numpy())
+
+
+@pytest.mark.parametrize("shape", SLABS, ids=lambda s: f"{s[0]}x{s[1]}w{s[2]}")
+def test_kernels_match_plain_on_card(shape, card):
+    v, d, words, colors = shape
+    x = _slab(v, d, words, colors, v * d)
+    # the [:V, :D] view of a (V+1, D+1) slab, as the engines pass it
+    buf = torch.full((v + 1, d + 1), 7, dtype=torch.int32, device=card)
+    buf[:v, :d] = torch.from_numpy(x).to(card)
+    view = buf[:v, :d]
+    rng = np.random.default_rng(v)
+    forbid = torch.from_numpy(rng.random((v, d)) < 0.6).to(card)
+    elig = torch.from_numpy(rng.random((v, d)) < 0.3).to(card)
+    own = torch.where(torch.from_numpy(rng.random(v) < 0.5).to(card),
+                      view[:, 0] & COLOR_MASK,
+                      torch.from_numpy(rng.integers(0, 200, v).astype(np.int32)).to(card))
+    before = launch_counts()
+    _equal(firstfit(view, words=words), firstfit_plain(view, words=words))
+    ent = pack_entries(view, forbid, elig)
+    for a, b in zip(round_fused(ent, own, words=words),
+                    round_fused_plain(ent, own, words=words)):
+        _equal(a, b)
+    ids = torch.from_numpy(rng.integers(0, 100, (2, v)).astype(np.int32)).to(card)
+    cols = (view[:, 0].contiguous(), view[:, -1].contiguous(), ids[0], ids[1])
+    _equal(conflict_mask(*cols), conflict_mask_plain(*cols))
+    torch.cuda.synchronize()
+    after = launch_counts()
+    assert all(after[k] == before[k] + 1 for k in after)
+
+
+@pytest.mark.parametrize("engine", ["sort", "bitmap", "ell_pallas",
+                                    "fused_pallas"])
+def test_card_run_equals_cpu_run(engine, card):
+    g = T.rmat.paper_graph("RMAT-B", 9, seed=0)
+    for spec in (T.ColoringSpec(engine=engine, concurrency=64),
+                 T.ColoringSpec(strategy="dataflow", engine=engine)):
+        got, want = T.color(g, spec), T.color(g, spec, device="cpu")
+        _equal(torch.from_numpy(got.colors), torch.from_numpy(want.colors))
+        assert got.rounds == want.rounds
+        for f in ("conflicts_per_round", "sweeps_per_round",
+                  "frontier_sizes_per_round"):
+            np.testing.assert_array_equal(getattr(got, f), getattr(want, f))
