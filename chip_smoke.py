@@ -9,7 +9,10 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
 1. build    — compile the CUDA kernels from ``src/repro_torch/kernels/csrc``
               with nvcc (seconds, registers per kernel);
 2. kernels  — each kernel against its plain PyTorch version on the card, at
-              the main path's shapes and at edge cases; exact equality;
+              the main path's and the skew cell's shapes and at edge cases
+              (W = 8/9 across the register/shared bitset switch, misaligned
+              bases, last tiles that end inside a 16-byte word); exact
+              equality;
 3. main     — ITERATIVE (paper Alg. 2) on RMAT-ER scale 22: one
               ``compile_plan`` (engine ``fused_pallas``, 16384 lockstep
               threads) serves seeds 0 and 1, then ``color()`` with
@@ -18,7 +21,9 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
 4. skew     — RMAT-B scale 16 (Delta 1999, 63-word bitsets) under
               ``ell_pallas``/``fused_pallas``/``sort``, all bit-identical;
               DATAFLOW on RMAT-G scale 16 equals serial greedy;
-5. timings  — each kernel at the main path's shapes: median ms, the byte
+5. timings  — each kernel at the main path's shapes, and the two slab
+              kernels also at the RMAT-B skew shape: device ms per launch
+              (CUDA events around a run of back-to-back launches), the
               bound (the bytes these inputs need, at 3.35 TB/s), launches
               per colored graph, the plain version's ms.
 
@@ -55,19 +60,24 @@ def max_abs_err(got, want) -> int:
     return int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
 
 
-def median_ms(fn, reps: int) -> float:
+def device_ms(fn, launches: int, runs: int = 5) -> float:
+    """Device ms per call of fn: CUDA events around ``launches`` calls
+    issued back to back, divided by the count; the median over ``runs``
+    such runs. The host enqueues ahead of the card, so its launch latency
+    stays out of the number."""
     import torch
     fn()
     torch.cuda.synchronize()
     times = []
-    for _ in range(reps):
+    for _ in range(runs):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        fn()
+        for _ in range(launches):
+            fn()
         end.record()
         end.synchronize()
-        times.append(start.elapsed_time(end))
+        times.append(start.elapsed_time(end) / launches)
     return statistics.median(times)
 
 
@@ -82,9 +92,10 @@ def card_line() -> str:
 # --------------------------------------------------------------------------
 # phase 2: kernels against their plain versions
 # --------------------------------------------------------------------------
-def kernel_cases(dev, main_v: int, main_d: int, main_w: int, main_e: int):
-    """Yield (kernel, case name, got, want) over the main path's shapes and
-    the edge cases; the caller checks exact equality."""
+def kernel_cases(dev, main_v: int, main_d: int, main_w: int, main_e: int,
+                 skew_v: int, skew_d: int, skew_w: int):
+    """Yield (kernel, case name, got, want) over the main path's shapes,
+    the skew shape and the edge cases; the caller checks exact equality."""
     import torch
     from repro_torch.kernels import (COLOR_MASK, CONFLICT_BIT, FORBID_BIT,
                                      conflict_mask, conflict_mask_plain,
@@ -99,6 +110,21 @@ def kernel_cases(dev, main_v: int, main_d: int, main_w: int, main_e: int):
     def sink_view(v, d, lo, hi):
         # a (V+1, D+1) slab's [:V, :D] view, as the engines hand it over
         return rint(lo, hi, (v + 1, d + 1))[:v, :d]
+
+    def misaligned(t):
+        # t's values in a view whose base lies 4 bytes past a 16-byte
+        # boundary; a slab keeps a sink column (row stride D + 1)
+        if t.dim() == 1:
+            out = torch.empty(t.numel() + 1, dtype=torch.int32,
+                              device=dev)[1:]
+        else:
+            v, d = t.shape
+            flat = torch.empty((v + 1) * (d + 1) + 1, dtype=torch.int32,
+                               device=dev)
+            out = flat[1:].view(v + 1, d + 1)[:v, :d]
+        out.copy_(t)
+        assert out.data_ptr() % 16 == 4
+        return out
 
     def full_rows(v, d, w):
         # rows 0..k hold every color 1..32w-1: their mex is INT32_MAX
@@ -120,11 +146,22 @@ def kernel_cases(dev, main_v: int, main_d: int, main_w: int, main_e: int):
         ("out of range", rint(-100, 32 * 3 + 100, (777, 19)), 3),
         ("strided sink view", sink_view(999, 45, -3, 70), 2),
         ("one row", rint(0, 40, (1, 33)), 1),
+        # across the switch from register bitsets (W <= 8) to shared ones
+        ("W=8 full rows", full_rows(300, 300, 8), 8),
+        ("W=9 full rows", full_rows(300, 300, 9), 9),
+        ("misaligned base", misaligned(sink_view(999, 39, -3, 70)), 2),
+        ("misaligned W=63", misaligned(full_rows(70, 2100, 63)), 63),
+        # S = D: the last tile's span ends 12 bytes past a 16-byte boundary
+        ("contiguous ragged tail", rint(-3, 70, (1001, 39)), 2),
+        ("V < R", rint(-3, 70, (5, 39)), 2),
+        ("D=1 sink view", sink_view(1025, 1, -2, 40), 1),
+        ("skew shape", sink_view(skew_v, skew_d, -3, 32 * skew_w + 5),
+         skew_w),
     ]
     for name, x, w in slabs:
         got = firstfit(x, words=w)
         want = firstfit_plain(x, words=w)
-        if name in ("W=1 full rows", "W=63 full rows"):
+        if "full rows" in name:
             assert int((want == INT32_MAX).sum()) >= 8, name
         yield "firstfit", name, got, want
         bits = ((rint(0, 10, x.shape) < 6).to(torch.int32) * FORBID_BIT
@@ -133,6 +170,10 @@ def kernel_cases(dev, main_v: int, main_d: int, main_w: int, main_e: int):
         own = torch.where(rint(0, 2, (x.shape[0],)) == 1,
                           x[:, 0] & COLOR_MASK,
                           rint(0, 32 * w, (x.shape[0],)))
+        if name.startswith("misaligned"):
+            ent, own = misaligned(ent), misaligned(own)
+        elif name == "strided sink view":
+            own = misaligned(own)   # only the own colors are misaligned
         m_got, c_got = round_fused(ent, own, words=w)
         m_want, c_want = round_fused_plain(ent, own, words=w)
         if name == "main":
@@ -238,12 +279,15 @@ def main() -> int:
         max_degree=max(g.max_degree() for g in graphs))
     words = num_color_words(shape.max_degree + 1)
     log(f"plan shape: {shape}, bitset words W={words}")
+    gb = rmat.paper_graph("RMAT-B", SCALE_SKEW, seed=0)
+    skew_words = num_color_words(gb.max_degree() + 1)
 
     # ---- phase 2: kernels vs plain --------------------------------------
     errors = {k.name: 0 for k in KERNELS}
     for kernel, case, got, want in kernel_cases(
             dev, shape.num_vertices, shape.max_degree, words,
-            shape.padded_edges):
+            shape.padded_edges, gb.num_vertices, gb.max_degree(),
+            skew_words):
         torch.cuda.synchronize()
         err = max_abs_err(got, want)
         errors[kernel] = max(errors[kernel], err)
@@ -290,7 +334,7 @@ def main() -> int:
                         ell_width=shape.max_degree, device="cuda")
     torch.cuda.synchronize()
     layout_s = time.perf_counter() - t
-    busy, top = device_busy(lambda: plan(graphs[0]))
+    busy, top = device_busy(lambda: plan(graphs[0]), top=12)
     t = time.perf_counter()
     plan(graphs[0])
     torch.cuda.synchronize()
@@ -307,10 +351,9 @@ def main() -> int:
     log("phase 3 main path: ok")
 
     # ---- phase 4: skew and exactness ------------------------------------
-    gb = rmat.paper_graph("RMAT-B", SCALE_SKEW, seed=0)
     log(f"phase 4 RMAT-B scale {SCALE_SKEW}: V={gb.num_vertices} "
         f"E={gb.num_directed_edges} max_degree={gb.max_degree()} "
-        f"W={num_color_words(gb.max_degree() + 1)}")
+        f"W={skew_words}")
     skew = {}
     for engine in ("ell_pallas", "fused_pallas", "sort"):
         t = time.perf_counter()
@@ -337,57 +380,71 @@ def main() -> int:
     log("phase 4 skew and exactness: ok")
 
     # ---- phase 5: timings at the main path's shapes ---------------------
-    g0 = graphs[0]
-    dg = g0.to_device(layout=("edges", "ell"), device="cuda")
-    c = torch.from_numpy(reports[0].colors).to(dev)
-    cpad = torch.cat([c, c.new_zeros(1)])
-    V, D, E = g0.num_vertices, dg.ell_width, dg.padded_edges
-    slab = ell_slab(V, D, dg.src, dg.ell_slot, cpad[dg.dst])
-    ent = ell_slab(V, D, dg.src, dg.ell_slot, cpad[dg.dst] | FORBID_BIT)
+    def slabs(g, colors, w):
+        # the slab firstfit reads and the packed slab round_fused reads,
+        # from a colored graph's ELL layout (the [:V, :D] sink views)
+        dg = g.to_device(layout=("edges", "ell"), device="cuda")
+        c = torch.from_numpy(colors).to(dev)
+        cpad = torch.cat([c, c.new_zeros(1)])
+        V, D = g.num_vertices, dg.ell_width
+        slab = ell_slab(V, D, dg.src, dg.ell_slot, cpad[dg.dst])
+        ent = ell_slab(V, D, dg.src, dg.ell_slot, cpad[dg.dst] | FORBID_BIT)
+        return dg, c, cpad, V, D, {
+            "firstfit": (lambda: firstfit(slab, words=w),
+                         lambda: firstfit_plain(slab, words=w),
+                         4 * V * D + 4 * V, 4 * V * D),
+            "round_fused": (lambda: round_fused(ent, c, words=w),
+                            lambda: round_fused_plain(ent, c, words=w),
+                            4 * V * D + 4 * V + 8 * V, 6 * V * D),
+        }
+
+    dg, c, cpad, V, D, runs = slabs(graphs[0], reports[0].colors, words)
+    E = dg.padded_edges
     csrc, cdst = cpad[dg.src], cpad[dg.dst]
     # conflict_mask reads src/dst only where the colors tie and are > 0
     ties = int(((csrc == cdst) & (csrc > 0)).sum())
-    runs = {
-        "firstfit": (lambda: firstfit(slab, words=words),
-                     lambda: firstfit_plain(slab, words=words),
-                     4 * V * D + 4 * V, 4 * V * D),
-        "round_fused": (lambda: round_fused(ent, c, words=words),
-                        lambda: round_fused_plain(ent, c, words=words),
-                        4 * V * D + 4 * V + 8 * V, 6 * V * D),
-        "conflict_mask": (lambda: conflict_mask(csrc, cdst, dg.src, dg.dst),
-                          lambda: conflict_mask_plain(csrc, cdst, dg.src,
-                                                      dg.dst),
-                          12 * E + 8 * ties, 3 * E),
-    }
+    runs["conflict_mask"] = (
+        lambda: conflict_mask(csrc, cdst, dg.src, dg.dst),
+        lambda: conflict_mask_plain(csrc, cdst, dg.src, dg.dst),
+        12 * E + 8 * ties, 3 * E)
     graphs_per_kernel = {"firstfit": 1, "round_fused": 2, "conflict_mask": 3}
-    rows = []
-    for k in KERNELS:
-        run, plain, nbytes, nops = runs[k.name]
+
+    def timed(name, run, plain, nbytes, nops):
         got, want = run(), plain()
         if isinstance(got, tuple):
             err = max(max_abs_err(a, b) for a, b in zip(got, want))
         else:
             err = max_abs_err(got, want)
-        assert err == 0, f"{k.name} disagrees with its plain version"
-        ms = median_ms(run, 50)
-        plain_ms = median_ms(plain, 5)
+        assert err == 0, f"{name} disagrees with its plain version"
+        ms = device_ms(run, 50)
+        plain_ms = device_ms(plain, 3, runs=3)
         bytes_ms = 1e3 * nbytes / HBM_BYTES_PER_S
         ops_ms = 1e3 * nops / INT_OPS_PER_S
+        by = "bytes" if bytes_ms >= ops_ms else "operations"
+        bound = max(bytes_ms, ops_ms)
+        log(f"phase 5 {name}: {ms:.4f} ms (bound {bound:.4f} ms by {by}, "
+            f"{nbytes / 1e6:.1f} MB; {100 * bound / ms:.1f}% of roofline); "
+            f"plain {plain_ms:.3f} ms")
+        return err, ms, plain_ms, bound, by
+
+    rows = []
+    for k in KERNELS:
+        err, ms, plain_ms, bound, by = timed(k.name, *runs[k.name])
         launches = main_counts[k.name]
-        log(f"phase 5 {k.name}: {ms:.4f} ms (bound {max(bytes_ms, ops_ms):.4f}"
-            f" ms by {'bytes' if bytes_ms >= ops_ms else 'operations'}, "
-            f"{nbytes / 1e6:.1f} MB; {100 * max(bytes_ms, ops_ms) / ms:.1f}% "
-            f"of roofline); plain {plain_ms:.3f} ms; launches on the main "
-            f"path {launches} ({launches / graphs_per_kernel[k.name]:.1f} "
-            f"per colored graph)")
+        log(f"  {k.name} launches on the main path {launches} "
+            f"({launches / graphs_per_kernel[k.name]:.1f} per colored graph)")
         rows.append({
             "name": k.name, "route": "cuda", "source": k.source,
             "replaces": k.replaces, "launches": launches,
             "max_abs_err": max(err, errors[k.name]), "ms": ms,
-            "plain_ms": plain_ms, "bound_ms": max(bytes_ms, ops_ms),
-            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
             "library_ms": None,
         })
+    # the wide path (W > 8) at the skew cell's shape
+    *_, V, D, skew_runs = slabs(gb, skew["ell_pallas"].colors, skew_words)
+    log(f"phase 5 skew shape: [{V} x {D}], W={skew_words}")
+    for name, args in skew_runs.items():
+        timed(f"{name} (skew)", *args)
     log("phase 5 timings: ok")
 
     print(json.dumps({"kernels": rows}), flush=True)

@@ -8,9 +8,11 @@ kernel builds each row's ``W``-word forbidden bitset (color 0 preset,
 colors ``< 0`` or ``>= 32·W`` dropped) and returns the lowest clear bit.
 
 * :func:`firstfit` — the wrapper. A CUDA tensor launches the hand-written
-  kernel ``csrc/firstfit.cu`` (one warp per row, the bitset in shared
-  memory; see the source for its bound and design) or raises; a CPU tensor
-  takes :func:`firstfit_plain`. There is no fallback between the two.
+  kernel ``csrc/firstfit.cu`` (row tiles staged into shared memory by bulk
+  async copies, 4 lanes per row with the bitset in registers for W <= 8,
+  a warp per row with a shared bitset above; see the source for its bound
+  and design) or raises; a CPU tensor takes :func:`firstfit_plain`. There
+  is no fallback between the two.
 * :func:`firstfit_plain` — the same function in plain PyTorch.
 * ``firstfit.launches`` — how many times the wrapper launched the kernel.
 """
@@ -21,8 +23,10 @@ import torch
 from . import _build
 from .ref import table_mex
 
-# a block may use at most 227 KB (232,448 bytes) of shared memory on Hopper
+# a block may use at most 227 KB (232,448 bytes) of shared memory on Hopper;
+# the kernels keep 1,152 of them for their barriers and result stash
 SMEM_LIMIT_BYTES = 232_448
+SMEM_RESERVED_BYTES = 1_152
 
 
 def firstfit_plain(nbr_colors: torch.Tensor, *, words: int) -> torch.Tensor:
@@ -46,10 +50,11 @@ def check_slab(slab: torch.Tensor, words: int, name: str) -> None:
                          f"stride >= {D}; got strides {slab.stride()}")
     if int(words) < 1:
         raise ValueError(f"{name}: words must be >= 1")
-    if 4 * int(words) > SMEM_LIMIT_BYTES:
+    if 4 * int(words) > SMEM_LIMIT_BYTES - SMEM_RESERVED_BYTES:
         raise ValueError(f"{name}: a {words}-word bitset needs {4 * words} "
                          f"bytes of shared memory per row, above the "
-                         f"{SMEM_LIMIT_BYTES} a block may use")
+                         f"{SMEM_LIMIT_BYTES - SMEM_RESERVED_BYTES} a block "
+                         f"has for it")
 
 
 def row_stride(slab: torch.Tensor) -> int:

@@ -11,9 +11,10 @@ Each int32 slab entry packs a neighbor's color with two predicate bits:
 Entries with neither bit are inert; color 0 is always forbidden.
 
 * :func:`round_fused` — the wrapper. A CUDA tensor launches the
-  hand-written kernel ``csrc/round_fused.cu`` (``firstfit``'s warp-per-row
-  bitset plus a warp vote for the conflict flag) or raises; a CPU tensor
-  takes :func:`round_fused_plain`. There is no fallback between the two.
+  hand-written kernel ``csrc/round_fused.cu`` (``firstfit``'s staged row
+  tiles and bitsets, plus a warp ballot for the conflict flag) or raises; a
+  CPU tensor takes :func:`round_fused_plain`. There is no fallback between
+  the two.
 * :func:`round_fused_plain` — the same function in plain PyTorch.
 * ``round_fused.launches`` — how many times the wrapper launched the kernel.
 """

@@ -19,10 +19,26 @@ from repro_torch.kernels import (COLOR_MASK, conflict_mask,
 
 pytestmark = pytest.mark.cuda
 
-# (rows, width, words, color range): ragged V, D=1, W=1 and W=63 with full
-# rows (INT32_MAX), negative and >= 32*W colors, one row
+# (rows, width, words, color range[, layout]): ragged V, D=1, W=1 and W=63
+# with full rows (INT32_MAX), negative and >= 32*W colors, one row; W=8 and
+# W=9 across the switch from register to shared bitsets; a base 4 bytes past
+# a 16-byte boundary; contiguous S = D slabs whose last tile ends inside a
+# 16-byte word (V not a multiple of the tile, V below one tile, D=1); and
+# the RMAT-B scale-16 skew shape. The layout is the [:V, :D] view of a
+# (V+1, D+1) slab unless it says otherwise.
 SLABS = [(37, 9, 2, (-5, 73)), (13, 1, 1, (-2, 40)), (21, 31, 1, None),
-         (18, 2048, 63, None), (50, 12, 3, (-100, 196)), (1, 33, 2, (0, 40))]
+         (18, 2048, 63, None), (50, 12, 3, (-100, 196)), (1, 33, 2, (0, 40)),
+         (300, 300, 8, None), (300, 300, 9, None),
+         (999, 39, 2, (-3, 70), "misaligned"),
+         (70, 2100, 63, None, "misaligned"),
+         (1001, 39, 2, (-3, 70), "contiguous"),
+         (5, 39, 2, (-3, 70), "contiguous"),
+         (513, 1, 1, (-2, 40), "contiguous"),
+         (65536, 1999, 63, (-3, 2021))]
+
+
+def _slab_id(s):
+    return f"{s[0]}x{s[1]}w{s[2]}" + (f"-{s[4]}" if len(s) > 4 else "")
 
 
 @pytest.fixture
@@ -51,23 +67,43 @@ def _equal(a, b):
     np.testing.assert_array_equal(a.cpu().numpy(), b.cpu().numpy())
 
 
-@pytest.mark.parametrize("shape", SLABS, ids=lambda s: f"{s[0]}x{s[1]}w{s[2]}")
+def _layout(x, layout, card):
+    """x (numpy, 1-D or 2-D) on the card. A 2-D x is the [:V, :D] view of a
+    (V+1, D+1) slab, as the engines pass it, unless the layout is
+    "contiguous"; "misaligned" also puts the base 4 bytes past a 16-byte
+    boundary."""
+    t = torch.from_numpy(np.ascontiguousarray(x))
+    if layout == "contiguous" or (t.dim() == 1 and layout == "sink"):
+        return t.to(card)
+    shift = int(layout == "misaligned")
+    if t.dim() == 1:
+        out = torch.full((t.numel() + shift,), 7, dtype=torch.int32,
+                         device=card)[shift:]
+    else:
+        v, d = t.shape
+        out = torch.full(((v + 1) * (d + 1) + shift,), 7, dtype=torch.int32,
+                         device=card)[shift:].view(v + 1, d + 1)[:v, :d]
+    out.copy_(t)
+    assert out.data_ptr() % 16 == 4 * shift
+    return out
+
+
+@pytest.mark.parametrize("shape", SLABS, ids=_slab_id)
 def test_kernels_match_plain_on_card(shape, card):
-    v, d, words, colors = shape
+    v, d, words, colors = shape[:4]
+    layout = shape[4] if len(shape) > 4 else "sink"
     x = _slab(v, d, words, colors, v * d)
-    # the [:V, :D] view of a (V+1, D+1) slab, as the engines pass it
-    buf = torch.full((v + 1, d + 1), 7, dtype=torch.int32, device=card)
-    buf[:v, :d] = torch.from_numpy(x).to(card)
-    view = buf[:v, :d]
+    view = _layout(x, layout, card)
     rng = np.random.default_rng(v)
     forbid = torch.from_numpy(rng.random((v, d)) < 0.6).to(card)
     elig = torch.from_numpy(rng.random((v, d)) < 0.3).to(card)
     own = torch.where(torch.from_numpy(rng.random(v) < 0.5).to(card),
                       view[:, 0] & COLOR_MASK,
                       torch.from_numpy(rng.integers(0, 200, v).astype(np.int32)).to(card))
+    own = _layout(own.cpu().numpy(), layout, card)
     before = launch_counts()
     _equal(firstfit(view, words=words), firstfit_plain(view, words=words))
-    ent = pack_entries(view, forbid, elig)
+    ent = _layout(pack_entries(view, forbid, elig).cpu().numpy(), layout, card)
     for a, b in zip(round_fused(ent, own, words=words),
                     round_fused_plain(ent, own, words=words)):
         _equal(a, b)

@@ -1,7 +1,8 @@
 """repro_torch kernels: each plain PyTorch version against the reference's
 Pallas kernel (interpret mode, small block shapes), over the edge cases the
-CUDA kernels must also hold — ragged V, D=1, W=1 and W=63, full rows
-(INT32_MAX), negative and >= 32*W colors, strided sink-column views — plus
+CUDA kernels must also hold — ragged V, D=1, W=1, W=8, W=9 and W=63, full
+rows (INT32_MAX), negative and >= 32*W colors, strided sink-column views
+(D=39 at the main path's stride of 40) — plus
 the wrappers' routing and checks, and the build's wiring. Exact equality
 throughout: the functions are integer-valued. The CUDA kernels themselves
 are held against the plain versions on a card (tests/test_torch_cuda.py,
@@ -63,11 +64,17 @@ def _slab(case):
         return rng.integers(-100, 196, size=(50, 12)).astype(np.int32), 3, 8
     if case == "one row":
         return rng.integers(0, 40, size=(1, 33)).astype(np.int32), 2, 8
+    if case == "W=8 full rows":   # the last register-bitset width
+        return _full_rows(rng, 20, 300, 8), 8, 128
+    if case == "W=9 full rows":   # the first shared-bitset width
+        return _full_rows(rng, 20, 300, 9), 9, 128
+    if case == "D=39 sink view":  # the main path's width and stride 40
+        return rng.integers(-3, 70, size=(70, 39)).astype(np.int32), 2, 8
     raise KeyError(case)
 
 
 CASES = ["ragged", "D=1", "W=1 full rows", "W=63 full rows", "out of range",
-         "one row"]
+         "one row", "W=8 full rows", "W=9 full rows", "D=39 sink view"]
 
 
 def _sink_view(x: np.ndarray) -> torch.Tensor:
