@@ -13,7 +13,8 @@ from typing import Mapping
 import numpy as np
 import torch
 
-from .core.graph import DeviceGraph, DeviceSpec, Graph, resolve_device
+from .core.graph import (BipartiteGraph, DeviceGraph, DeviceSpec, Graph,
+                         resolve_device)
 
 _ARRAY_FIELDS = ("src", "dst", "row_ptr", "col_idx", "ell_slot", "inc_ptr")
 _STATIC_FIELDS = ("num_vertices", "num_directed_edges", "max_degree",
@@ -42,3 +43,14 @@ def graph_from_arrays(num_vertices: int, row_ptr, col_idx) -> Graph:
     """A host :class:`Graph` from a reference ``Graph``'s CSR arrays."""
     return Graph(int(num_vertices), np.asarray(row_ptr, np.int64),
                  np.asarray(col_idx, np.int32))
+
+
+def bipartite_from_arrays(num_left: int, num_right: int, l2r_ptr, l2r_idx,
+                          r2l_ptr, r2l_idx) -> BipartiteGraph:
+    """A host :class:`BipartiteGraph` from a reference ``BipartiteGraph``'s
+    two CSR directions."""
+    return BipartiteGraph(int(num_left), int(num_right),
+                          np.asarray(l2r_ptr, np.int64),
+                          np.asarray(l2r_idx, np.int32),
+                          np.asarray(r2l_ptr, np.int64),
+                          np.asarray(r2l_idx, np.int32))

@@ -14,15 +14,17 @@ Three ways in, strictest first:
 ``device=None`` means the card; without one the entry points raise, and
 only an explicit ``device="cpu"`` runs the plain path on the host.
 
-Registered strategies: ``"iterative"`` (paper Alg. 2) and ``"dataflow"``
-(Alg. 3-5), model ``"d1"``. The reference's other registry names —
-strategies ``"distributed"``/``"recolor"`` and models ``"d2"``/``"pd2"`` —
-raise ``NotImplementedError`` naming the ROADMAP item that ports them; the
-spec never coerces them to something else.
+Registered strategies: ``"iterative"`` (paper Alg. 2), ``"dataflow"``
+(Alg. 3-5) and ``"recolor"`` (the ITERATIVE loop from a warm start, the
+streaming repair), under models ``"d1"``, ``"d2"`` and ``"pd2"``
+(``repro_torch.core.distance2`` lowers the last two into the engine's edge
+space). The reference's ``"distributed"`` strategy raises
+``NotImplementedError`` naming the ROADMAP item that ports it; the spec
+never coerces it to something else.
 
-Orderings are applied by relabeling the graph before coloring and
-un-relabeling the colors on the way out — reports are always in original
-vertex ids.
+Orderings are applied by relabeling the *constraint* graph before coloring
+and un-relabeling the colors on the way out — reports are always in
+original vertex ids.
 """
 from __future__ import annotations
 
@@ -34,27 +36,22 @@ from typing import Callable, Dict, NamedTuple, Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
+from .distance2 import MODELS, as_constraint_graph, constraint_host_graph
 from .engine import EngineSpec, MexBackend, get_backend
 from .frontier import FRONTIER_MODES, resolve_frontier
-from .graph import DeviceGraph, DeviceSpec, Graph, pad_bucket, resolve_device
+from .graph import (BipartiteGraph, DeviceGraph, DeviceSpec, Graph,
+                    pad_bucket, resolve_device)
 from .ordering import ORDERINGS
 
-MODELS = ("d1", "d2", "pd2")
+_LOWERINGS = ("auto", "wedge", "square")
 
 # registry names of the reference that later port slices bring over
 UNPORTED_STRATEGIES = {
-    "recolor": "ROADMAP A9 (streaming: DynamicColoring + RecolorStrategy)",
     "distributed": "ROADMAP A11 (distributed: partition_graph + BSP wire)",
 }
-UNPORTED_MODELS = {
-    "d2": "ROADMAP A8 (coloring models: distance2 lowerings)",
-    "pd2": "ROADMAP A8 (coloring models: distance2 lowerings)",
-}
-# reference spec fields read only by models/strategies not ported yet: a
-# spec dict may carry them at their default; any other value is refused
+# reference spec fields read only by strategies not ported yet: a spec dict
+# may carry them at their default; any other value is refused
 REFERENCE_ONLY_FIELDS = {
-    "lowering": ("auto", UNPORTED_MODELS["d2"]),
-    "side": ("left", UNPORTED_MODELS["pd2"]),
     "local_concurrency": (1, UNPORTED_STRATEGIES["distributed"]),
     "wire": ("auto", UNPORTED_STRATEGIES["distributed"]),
     "partition": ("1d", UNPORTED_STRATEGIES["distributed"]),
@@ -71,11 +68,17 @@ class ColoringSpec:
     packages.
 
     strategy     registered :class:`ColoringStrategy` name (or instance):
-                 ``"iterative"`` | ``"dataflow"``;
-    model        coloring semantics: ``"d1"``;
+                 ``"iterative"`` | ``"dataflow"`` | ``"recolor"``;
+    model        coloring semantics: ``"d1"`` | ``"d2"`` | ``"pd2"``
+                 (repro_torch.core.distance2);
     engine       first-fit mex backend name/instance (repro_torch.core.engine);
-    ordering     vertex-visit priority, a ``ORDERINGS`` key;
+    ordering     vertex-visit priority, a ``ORDERINGS`` key, applied to the
+                 constraint graph;
     ordering_seed  seed for stochastic orderings (``"random"``);
+    lowering     D2/PD2 constraint lowering: ``"auto"`` | ``"wedge"`` |
+                 ``"square"`` (plans always use the dedup'd square
+                 lowering, so shapes are paddable);
+    side         the colored class under ``model="pd2"``;
     concurrency  ITERATIVE's lockstep virtual-thread count;
     max_rounds / max_sweeps / color_bound  as on the legacy entry points;
     frontier     active-set execution: ``"auto"`` | ``"on"`` | ``"off"``
@@ -83,8 +86,8 @@ class ColoringSpec:
     frontier_capacity  static vertex-slab capacity override (0 = ladder).
 
     The reference's other fields (:data:`REFERENCE_ONLY_FIELDS`) belong to
-    models and strategies not ported yet; ``to_dict``/``from_dict`` carry
-    them at their defaults.
+    the distributed strategy, not ported yet; ``to_dict``/``from_dict``
+    carry them at their defaults.
     """
 
     strategy: Union[str, "ColoringStrategy"] = "iterative"
@@ -92,6 +95,8 @@ class ColoringSpec:
     engine: EngineSpec = "sort"
     ordering: str = "natural"
     ordering_seed: int = 0
+    lowering: str = "auto"
+    side: str = "left"
     concurrency: int = 64
     max_rounds: int = 64
     max_sweeps: int = 4096
@@ -103,10 +108,9 @@ class ColoringSpec:
         if self.model not in MODELS:
             raise ValueError(f"unknown coloring model {self.model!r}; "
                              f"choose from {MODELS}")
-        if self.model in UNPORTED_MODELS:
-            raise NotImplementedError(
-                f"model={self.model!r} is not ported to repro_torch yet: "
-                f"{UNPORTED_MODELS[self.model]}")
+        if self.lowering not in _LOWERINGS:
+            raise ValueError(f"unknown lowering {self.lowering!r}; "
+                             f"choose from {_LOWERINGS}")
         if isinstance(self.strategy, str) \
                 and self.strategy in UNPORTED_STRATEGIES:
             raise NotImplementedError(
@@ -195,16 +199,33 @@ def _build_report(raw: RawColoring, spec: "ColoringSpec", strategy_name: str,
 
 
 def _trivial_report(spec: "ColoringSpec", num_vertices: int, t0: float, *,
-                    batch_denom: int = 1) -> "ColoringReport":
-    """The degenerate result (V=0, or no edges at all): every vertex takes
-    color 1 — vacuously valid — in zero rounds; no engine runs."""
+                    batch_denom: int = 1,
+                    colors: Optional[np.ndarray] = None) -> "ColoringReport":
+    """The degenerate result (V=0, or no constraint edges at all): every
+    vertex takes color 1 — vacuously valid — in zero rounds; no engine
+    runs. ``colors`` keeps a recolor warm start: committed (positive)
+    entries pass through, only uncolored slots take color 1."""
+    if colors is not None:
+        carried = np.asarray(colors).astype(np.int32)
+        carried = np.where(carried > 0, carried, 1).astype(np.int32)
+    else:
+        carried = np.ones(num_vertices, np.int32)
     empty = np.zeros(0, np.int32)
     return ColoringReport(
-        colors=np.ones(num_vertices, np.int32), rounds=0,
+        colors=carried, rounds=0,
         conflicts_per_round=empty, sweeps_per_round=empty.copy(),
         frontier_sizes_per_round=empty.copy(),
         wall_time_s=(time.perf_counter() - t0) / max(1, batch_denom),
         spec=spec)
+
+
+def _graph_extent(g, spec: "ColoringSpec") -> Tuple[int, int]:
+    """(colored-class size, raw edge count) of an input graph, readable
+    without lowering the coloring model — the degenerate-input check."""
+    if isinstance(g, BipartiteGraph):
+        n = g.num_left if spec.side == "left" else g.num_right
+        return n, g.num_edges
+    return g.num_vertices, g.num_directed_edges
 
 
 @dataclasses.dataclass
@@ -259,31 +280,43 @@ class ColoringStrategy:
     A strategy supplies ONE thing: how to turn a constraint
     :class:`DeviceGraph` into a :class:`RawColoring`
     (:meth:`device_program`). The base class derives one-shot execution
-    (:meth:`oneshot`); :class:`ColoringPlan` builds the program once.
+    (:meth:`oneshot`); :class:`ColoringPlan` builds the program once and
+    feeds it per-call state through :meth:`plan_state`.
     """
 
     name = "abstract"
+    supports_map = True    # plan.map() serves a batch
 
     def device_program(self, spec: ColoringSpec,
-                       backend: MexBackend) -> Callable[[DeviceGraph], RawColoring]:
+                       backend: MexBackend) -> Callable[..., RawColoring]:
         raise NotImplementedError
 
     def oneshot(self, spec: ColoringSpec, g, device: DeviceSpec = None) -> RawColoring:
-        """Run once on ``g``: a host :class:`Graph` is laid out on
-        ``device`` (``None`` = the card) in the layout the engine needs; a
-        :class:`DeviceGraph` runs where it lies."""
+        """Run once on ``g``: a host :class:`Graph`/``BipartiteGraph`` is
+        lowered per ``spec.model`` (wedge by default for d2/pd2 on the
+        edges layout, square for the ELL engines) onto ``device``
+        (``None`` = the card); a :class:`DeviceGraph` runs where it lies."""
         backend = get_backend(spec.engine)
-        if isinstance(g, DeviceGraph):
-            if device is not None and resolve_device(device).type != g.device.type:
-                raise ValueError(f"DeviceGraph lies on {g.device}, not on "
-                                 f"the requested device {device!r}")
-            dg = g
-        elif isinstance(g, Graph):
-            layout = ("edges", "ell") if backend.needs_ell else "edges"
-            dg = g.to_device(layout=layout, device=device)
-        else:
-            raise TypeError(f"expected Graph/DeviceGraph, got {type(g).__name__}")
+        if isinstance(g, DeviceGraph) and device is not None \
+                and resolve_device(device).type != g.device.type:
+            raise ValueError(f"DeviceGraph lies on {g.device}, not on "
+                             f"the requested device {device!r}")
+        dg = as_constraint_graph(g, spec.model, needs_ell=backend.needs_ell,
+                                 strategy=spec.lowering, side=spec.side,
+                                 device=device)
         return self.device_program(spec, backend)(dg)
+
+    def plan_state(self, spec: ColoringSpec, statics: "PlanShape",
+                   **runtime) -> Tuple:
+        """Normalize per-call runtime state (``plan(g, key=value, ...)``)
+        into the extra arguments this strategy's program takes. The base
+        strategies are stateless — any runtime kwarg is an error; the
+        ``"recolor"`` strategy accepts the (colors, seed) warm start."""
+        if runtime:
+            raise TypeError(
+                f"strategy {self.name!r} takes no per-call state; got "
+                f"{sorted(runtime)}")
+        return ()
 
 
 _REGISTRY: Dict[str, ColoringStrategy] = {}
@@ -369,8 +402,83 @@ class DataflowStrategy(ColoringStrategy):
         return run
 
 
+@dataclasses.dataclass(frozen=True)
+class RecolorStrategy(ColoringStrategy):
+    """Detect-and-recolor (Rokos et al., arXiv:1505.04086): the paper's
+    speculation loop run from a caller-supplied warm start instead of the
+    cold one (no colors, all pending).
+
+    ``plan(g, colors=, seed=)`` hands the program the committed colors and
+    the seed mask of vertices to repair (the endpoints of newly
+    conflicting edges under streaming deltas; repro_torch.core.dynamic
+    builds exactly that). Phase 1 recolors only the seed set, committed
+    neighbors forbidding their colors, and round 0 may take the compacted
+    frontier path (``seed_frontier``), so a delta repair sweeps the seed's
+    slab, not the whole edge list.
+
+    With no state (``color(g, strategy="recolor")``, or a bare
+    ``plan(g)``) the warm start is the cold start: colors, rounds and
+    conflict history equal ``"iterative"``'s. Both arrays are [V] in the
+    plan's vertex ids, so ``ordering`` must stay ``"natural"`` whenever
+    state is passed. ``plan.map`` is unsupported (repairs are single
+    latency-bound calls)."""
+
+    name = "recolor"
+    supports_map = False
+
+    def device_program(self, spec, backend):
+        from .iterative import _iterative_impl
+
+        def run(dg, colors0=None, pending0=None):
+            fcv, fce = resolve_frontier(
+                spec.frontier, int(spec.frontier_capacity),
+                num_vertices=dg.num_vertices, padded_edges=dg.padded_edges,
+                max_degree=dg.max_degree, has_inc=dg.has_frontier)
+            colors, rnd, conf, sweeps, fronts, left = _iterative_impl(
+                dg, colors0, pending0, concurrency=int(spec.concurrency),
+                max_rounds=int(spec.max_rounds),
+                max_sweeps=int(spec.max_sweeps), backend=backend,
+                color_bound=int(spec.color_bound),
+                frontier_cap_v=fcv, frontier_cap_e=fce,
+                seed_frontier=True)
+            return RawColoring(colors, rnd, conf, sweeps, left, fronts)
+
+        return run
+
+    def plan_state(self, spec, statics, colors=None, seed=None):
+        """Host arrays ``(colors [V] int32, seed [V] bool)``: no colors is
+        all zeros, no seed is all pending."""
+        if (colors is not None or seed is not None) \
+                and spec.ordering != "natural":
+            # cold starts are ordering-invariant (the plan relabels and
+            # un-relabels as usual); only a WARM start pins vertex ids
+            raise ValueError(
+                "recolor repairs an existing coloring in place: state "
+                "arrays are in plan vertex ids, so ordering must be "
+                "'natural' (got {!r})".format(spec.ordering))
+        V = statics.num_vertices
+        if colors is None:
+            colors = np.zeros((V,), np.int32)
+        else:
+            colors = np.asarray(colors)
+            if colors.shape != (V,):
+                raise ValueError(f"recolor state: colors shape "
+                                 f"{colors.shape} != ({V},)")
+            colors = colors.astype(np.int32)
+        if seed is None:
+            seed = np.ones((V,), np.bool_)
+        else:
+            seed = np.asarray(seed)
+            if seed.shape != (V,):
+                raise ValueError(f"recolor state: seed shape "
+                                 f"{seed.shape} != ({V},)")
+            seed = seed.astype(np.bool_)
+        return colors, seed
+
+
 register_strategy(IterativeStrategy())
 register_strategy(DataflowStrategy())
+register_strategy(RecolorStrategy())
 
 
 # --------------------------------------------------------------------------
@@ -378,7 +486,8 @@ register_strategy(DataflowStrategy())
 # --------------------------------------------------------------------------
 @dataclasses.dataclass(frozen=True)
 class PlanShape:
-    """The static envelope a :class:`ColoringPlan` specializes on.
+    """The static envelope a :class:`ColoringPlan` specializes on, in
+    *constraint-graph* space (after the d2/pd2 lowering, where applicable).
 
     num_vertices   exact vertex count every served graph must match;
     padded_edges   directed-edge capacity (graphs pad up to it);
@@ -392,25 +501,28 @@ class PlanShape:
     max_degree: int
 
 
-def _plan_shape(graph_or_shape) -> PlanShape:
+def _plan_shape(spec: ColoringSpec, graph_or_shape) -> PlanShape:
     if isinstance(graph_or_shape, PlanShape):
         return graph_or_shape
-    if not isinstance(graph_or_shape, Graph):
+    if not isinstance(graph_or_shape, (Graph, BipartiteGraph)):
         raise TypeError(
-            "compile_plan needs a host Graph (plans relabel and pad on "
-            "host) or an explicit PlanShape")
-    g = graph_or_shape
-    return PlanShape(num_vertices=g.num_vertices,
-                     padded_edges=pad_bucket(g.num_directed_edges),
-                     max_degree=g.max_degree())
+            "compile_plan needs a host Graph/BipartiteGraph (plans lower, "
+            "relabel and pad on host) or an explicit PlanShape")
+    host = constraint_host_graph(graph_or_shape, spec.model, side=spec.side)
+    return PlanShape(num_vertices=host.num_vertices,
+                     padded_edges=pad_bucket(host.num_directed_edges),
+                     max_degree=host.max_degree())
 
 
 class ColoringPlan:
     """A built coloring program: spec + static shape envelope + device,
     serving any same-bucket graph with the same program.
 
-    ``plan(graph)`` -> :class:`ColoringReport`;
-    ``plan.map([g0, g1, ...])`` -> one report per graph. In this port
+    ``plan(graph, **runtime)`` -> :class:`ColoringReport` (``runtime`` is
+    per-call state for strategies that take it: ``"recolor"``'s
+    ``colors=``/``seed=``);
+    ``plan.map([g0, g1, ...])`` -> one report per graph (strategies with
+    ``supports_map``). In this port
     ``map`` runs the plan's program once per graph (reports as the
     reference's vmapped ``map`` returns them, wall time amortized over the
     batch); a batched program is later work (ROADMAP A16).
@@ -427,7 +539,7 @@ class ColoringPlan:
         self.spec = spec
         self.device = resolve_device(device)
         self.strategy, self._backend = spec.resolve()
-        self.statics = _plan_shape(graph_or_shape)
+        self.statics = _plan_shape(spec, graph_or_shape)
         if spec.ordering not in ORDERINGS:
             raise ValueError(f"unknown ordering {spec.ordering!r}; "
                              f"choose from {sorted(ORDERINGS)}")
@@ -442,60 +554,72 @@ class ColoringPlan:
         """Number of program builds taken by this plan (0 or 1)."""
         return int(self._program is not None)
 
-    def _run(self, dg: DeviceGraph) -> RawColoring:
+    def _run(self, dg: DeviceGraph, *state) -> RawColoring:
         if self._program is None:
             self._program = self.strategy.device_program(self.spec,
                                                          self._backend)
-        return self._program(dg)
+        return self._program(dg, *state)
 
-    def _canonicalize(self, g: Graph) -> Tuple[DeviceGraph, Optional[np.ndarray]]:
+    def _canonicalize(self, g) -> Tuple[DeviceGraph, Optional[np.ndarray]]:
         """Host graph -> (canonical DeviceGraph, relabel perm or None):
-        apply the ordering relabel, pad edges to the bucket, and pin the
-        static DeviceGraph fields to the plan envelope so every served
-        graph has the same static signature."""
+        lower the model (square lowering: paddable, dedup'd), apply the
+        ordering relabel, pad edges to the bucket, and pin the static
+        DeviceGraph fields to the plan envelope so every served graph has
+        the same static signature."""
         spec, st = self.spec, self.statics
-        if not isinstance(g, Graph):
-            raise TypeError(f"a plan serves host Graphs, got {type(g).__name__}")
-        if g.num_vertices != st.num_vertices:
+        host = constraint_host_graph(g, spec.model, side=spec.side)
+        if host.num_vertices != st.num_vertices:
             raise ValueError(
                 f"plan compiled for {st.num_vertices} vertices, got a graph "
-                f"with {g.num_vertices}; compile a new plan")
+                f"with {host.num_vertices}; compile a new plan")
         perm = None
         if spec.ordering != "natural":
-            perm = _invert_order(ORDERINGS[spec.ordering](g, spec.ordering_seed))
-            g = g.relabel(perm)
-        if g.num_directed_edges > st.padded_edges:
+            perm = _invert_order(ORDERINGS[spec.ordering](host,
+                                                          spec.ordering_seed))
+            host = host.relabel(perm)
+        if host.num_directed_edges > st.padded_edges:
             raise ValueError(
-                f"graph has {g.num_directed_edges} directed edges, above the "
-                f"plan bucket {st.padded_edges}; compile a plan from this "
-                "graph (or a larger PlanShape)")
-        if g.max_degree() > st.max_degree:
+                f"graph has {host.num_directed_edges} constraint edges, "
+                f"above the plan bucket {st.padded_edges}; compile a plan "
+                "from this graph (or a larger PlanShape)")
+        if host.max_degree() > st.max_degree:
             raise ValueError(
-                f"graph max degree {g.max_degree()} exceeds the plan bound "
-                f"{st.max_degree}; compile a plan with a larger "
+                f"graph max degree {host.max_degree()} exceeds the plan "
+                f"bound {st.max_degree}; compile a plan with a larger "
                 "PlanShape.max_degree (the color tables would drop forbids)")
         layout = ("edges", "ell") if self._backend.needs_ell else "edges"
-        dg = g.to_device(layout=layout, pad_edges_to=st.padded_edges,
-                         ell_width=max(1, st.max_degree), device=self.device)
+        dg = host.to_device(layout=layout, pad_edges_to=st.padded_edges,
+                            ell_width=max(1, st.max_degree),
+                            device=self.device)
         # the envelope bound sizes the color tables exactly as correctly
         # as the per-graph value, and keeps the signature constant
         dg = dataclasses.replace(dg, num_directed_edges=st.padded_edges,
                                  max_degree=st.max_degree)
         return dg, perm
 
-    def __call__(self, g) -> ColoringReport:
-        """Color ``g`` through the plan's program."""
+    def __call__(self, g, **runtime) -> ColoringReport:
+        """Color ``g`` through the plan's program. ``runtime`` kwargs are
+        per-call state for strategies that take it (``"recolor"``:
+        ``colors=``, ``seed=``); stateless strategies reject any."""
         t0 = time.perf_counter()
         canon, perm = self._canonicalize(g)
+        state = self.strategy.plan_state(self.spec, self.statics, **runtime)
         if self._degenerate:
-            return _trivial_report(self.spec, self.statics.num_vertices, t0)
-        return _build_report(self._run(canon), self.spec,
+            # nothing to run, but a recolor warm start keeps its committed
+            # colors (non-seed vertices never change)
+            return _trivial_report(self.spec, self.statics.num_vertices, t0,
+                                   colors=runtime.get("colors"))
+        return _build_report(self._run(canon, *state), self.spec,
                              self.strategy.name, perm, t0)
 
     def map(self, graphs: Sequence) -> list:
         """Color a batch of same-bucket graphs; one report per graph
         (original vertex ids, per-graph histories, wall time amortized
         over the batch)."""
+        if not self.strategy.supports_map:
+            raise NotImplementedError(
+                f"strategy {self.strategy.name!r} does not support batched "
+                "plan.map execution")
         graphs = list(graphs)
         if not graphs:
             return []
@@ -517,8 +641,9 @@ def compile_plan(spec: ColoringSpec, graph_or_shape,
     :class:`PlanShape`) into a reusable :class:`ColoringPlan` on ``device``
     (``None`` = the card).
 
-    From a graph, the envelope is its vertex count, its directed-edge
-    count rounded up the :func:`pad_bucket` grid, and its max degree. Any
+    From a graph, the envelope is read off its *constraint* form (the
+    square lowering under d2/pd2): the vertex count, the directed-edge
+    count rounded up the :func:`pad_bucket` grid, and the max degree. Any
     later graph inside the envelope is served by the same program."""
     return ColoringPlan(spec, graph_or_shape, device)
 
@@ -529,11 +654,12 @@ def compile_plan(spec: ColoringSpec, graph_or_shape,
 def color(g, spec: Optional[ColoringSpec] = None, device: DeviceSpec = None,
           **overrides) -> ColoringReport:
     """One-shot front door: ``color(graph, spec)`` or
-    ``color(graph, strategy="dataflow", engine="fused_pallas", ...)`` on
-    ``device`` (``None`` = the card; a DeviceGraph runs where it lies).
+    ``color(graph, strategy="dataflow", model="d2", ...)`` on ``device``
+    (``None`` = the card; a DeviceGraph runs where it lies).
 
-    Resolves the spec, applies the ordering (relabel in, un-relabel out),
-    runs the strategy and returns a :class:`ColoringReport`."""
+    Resolves the spec, applies the ordering to the constraint graph
+    (relabel in, un-relabel out), runs the strategy and returns a
+    :class:`ColoringReport`."""
     spec = ColoringSpec() if spec is None else spec
     if overrides:
         spec = dataclasses.replace(spec, **overrides)
@@ -544,17 +670,23 @@ def color(g, spec: Optional[ColoringSpec] = None, device: DeviceSpec = None,
         raise ValueError(f"unknown ordering {spec.ordering!r}; "
                          f"choose from {sorted(ORDERINGS)}")
     t0 = time.perf_counter()
-    if g.num_vertices == 0 or g.num_directed_edges == 0:
+    num_colored, num_edges = _graph_extent(g, spec)
+    if num_colored == 0 or num_edges == 0:
         # degenerate input: nothing constrains anything — color 1
-        # everywhere is valid, and no engine program needs to run
-        return _trivial_report(spec, g.num_vertices, t0)
+        # everywhere is valid under every model, and no engine runs
+        return _trivial_report(spec, num_colored, t0)
     perm = None
     if spec.ordering != "natural":
         if isinstance(g, DeviceGraph):
             raise ValueError(
-                "ordering != 'natural' relabels on host: pass a Graph (or "
-                "pre-apply repro_torch.core.ordering.apply)")
-        perm = _invert_order(ORDERINGS[spec.ordering](g, spec.ordering_seed))
-        g = g.relabel(perm)
-    raw = strategy.oneshot(spec, g, device)
+                "ordering != 'natural' relabels on host: pass a Graph/"
+                "BipartiteGraph (or pre-apply repro_torch.core.ordering.apply)")
+        host = constraint_host_graph(g, spec.model, side=spec.side)
+        perm = _invert_order(ORDERINGS[spec.ordering](host,
+                                                      spec.ordering_seed))
+        # the constraint graph IS the d1 encoding of the model
+        raw = strategy.oneshot(dataclasses.replace(spec, model="d1"),
+                               host.relabel(perm), device)
+    else:
+        raw = strategy.oneshot(spec, g, device)
     return _build_report(raw, spec, strategy.name, perm, t0)

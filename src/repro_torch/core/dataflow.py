@@ -132,6 +132,11 @@ def color_dataflow(g, max_sweeps: int = 4096,
     """DATAFLOW on ``device`` (``None`` = the card). ``color_bound`` caps
     the table backends' capacity below Delta+1, as in ``color_iterative``.
 
+    ``model`` selects the coloring semantics ("d1" | "d2" | "pd2"), lowered
+    as in ``color_iterative``; under "d2"/"pd2" the fixpoint reproduces
+    the serial D2/PD2 greedy in index order (``greedy_color_d2`` /
+    ``greedy_color_pd2``), since the lowering keeps vertex ids.
+
     Shim over the registered ``"dataflow"`` strategy — same arguments, same
     results, the legacy :class:`DataflowResult` return."""
     from .api import ColoringSpec, get_strategy  # lazy: api imports us

@@ -1,11 +1,15 @@
 """Graph containers for the coloring engine (PyTorch port).
 
-Two representations:
+Three representations:
 
 * :class:`Graph` — host-side (numpy) CSR + directed edge list. Construction,
-  dedup, symmetrization, stats live here. Bit-identical to the reference
-  ``repro.core.graph.Graph``: the same edges give the same ``row_ptr`` and
-  ``col_idx``.
+  dedup, symmetrization, stats and streaming edge deltas live here.
+  Bit-identical to the reference ``repro.core.graph.Graph``: the same edges
+  give the same ``row_ptr`` and ``col_idx``.
+* :class:`BipartiteGraph` — host-side two-sided CSR (left->right and
+  right->left), the input of partial distance-2 coloring (``model="pd2"``),
+  lowered into the engine's one-sided constraint graph by
+  ``repro_torch.core.distance2``.
 * :class:`DeviceGraph` — fixed-shape int32 torch tensors on ONE device,
   consumed by the coloring algorithms. Layout-aware like the reference:
   always the directed edge list plus ``inc_ptr``, and via
@@ -157,6 +161,109 @@ class Graph:
         )
         return src, self.col_idx.astype(np.int32)
 
+    def undirected_edges(self) -> np.ndarray:
+        """The canonical undirected edge set: [E, 2] int32 with u < v, in
+        lexicographic order (CSR order restricted to the lower direction)."""
+        src, dst = self.directed_edges()
+        half = src < dst
+        return np.stack([src[half], dst[half]], 1)
+
+    def _edge_keys(self, u: np.ndarray, v: np.ndarray) -> np.ndarray:
+        """Dense int64 key of canonical (u < v) pairs — u*V+v stays below
+        2^63 for any int32 vertex count, so no overflow."""
+        return u.astype(np.int64) * np.int64(self.num_vertices) \
+            + v.astype(np.int64)
+
+    @staticmethod
+    def _member_mask(sorted_keys: np.ndarray, keys: np.ndarray) -> np.ndarray:
+        """[M] bool: which ``keys`` occur in ``sorted_keys`` (one
+        searchsorted probe, shared by :meth:`has_edges` and
+        :meth:`delta_info`)."""
+        pos = np.searchsorted(sorted_keys, keys)
+        hit = np.zeros(keys.shape[0], np.bool_)
+        ok = pos < sorted_keys.shape[0]
+        hit[ok] = sorted_keys[pos[ok]] == keys[ok]
+        return hit
+
+    @staticmethod
+    def _canonical_pairs(edges, num_vertices: int) -> Tuple[np.ndarray, np.ndarray]:
+        """Normalize an [M, 2] endpoint array: orient u < v, drop self
+        loops, reject out-of-range ids. Duplicates are kept."""
+        edges = np.asarray(edges)
+        if edges.size == 0:
+            z = np.zeros(0, np.int32)
+            return z, z.copy()
+        edges = edges.reshape(-1, 2)
+        a = edges[:, 0].astype(np.int64)
+        b = edges[:, 1].astype(np.int64)
+        if a.size and (min(a.min(), b.min()) < 0
+                       or max(a.max(), b.max()) >= num_vertices):
+            raise ValueError("delta edge endpoint out of range "
+                             f"[0, {num_vertices})")
+        u = np.minimum(a, b)
+        v = np.maximum(a, b)
+        keep = u != v
+        return u[keep].astype(np.int32), v[keep].astype(np.int32)
+
+    def has_edges(self, edges) -> np.ndarray:
+        """[M] bool membership mask for candidate undirected edges ([M, 2]
+        endpoints, either orientation; self loops are never present)."""
+        u, v = self._canonical_pairs(edges, self.num_vertices)
+        base = self.undirected_edges()
+        base_keys = self._edge_keys(base[:, 0], base[:, 1])  # sorted (CSR)
+        hit = self._member_mask(base_keys, self._edge_keys(u, v))
+        edges = np.asarray(edges)
+        if edges.size == 0:
+            return np.zeros(0, np.bool_)
+        edges = edges.reshape(-1, 2)
+        out = np.zeros(edges.shape[0], np.bool_)
+        out[edges[:, 0] != edges[:, 1]] = hit
+        return out
+
+    def delta_info(self, inserts=None, deletes=None
+                   ) -> Tuple["Graph", np.ndarray, int]:
+        """Apply an undirected edge delta and report what changed:
+        ``(new_graph, added_pairs, num_deleted)`` where ``added_pairs`` is
+        the [M, 2] canonical (u < v) set of genuinely new edges and
+        ``num_deleted`` the count of genuinely removed ones.
+
+        Set semantics: duplicate rows, self loops, inserts of present edges
+        and deletes of absent edges are no-ops; an edge in both lists ends
+        PRESENT (deletes apply first, then inserts). The vertex set is
+        fixed."""
+        V = self.num_vertices
+        base = self.undirected_edges()
+        base_keys = self._edge_keys(base[:, 0], base[:, 1])  # sorted (CSR)
+
+        ins_pairs = np.zeros((0, 2), np.int32)
+        ins_keys = np.zeros(0, np.int64)
+        if inserts is not None:
+            iu, iv = self._canonical_pairs(inserts, V)
+            if iu.size:
+                ins_pairs = np.unique(np.stack([iu, iv], 1), axis=0)
+                ins_keys = self._edge_keys(ins_pairs[:, 0], ins_pairs[:, 1])
+
+        keep = np.ones(base_keys.shape[0], np.bool_)
+        if deletes is not None:
+            du, dv = self._canonical_pairs(deletes, V)
+            if du.size:
+                del_keys = self._edge_keys(du, dv)
+                if ins_keys.size:
+                    del_keys = del_keys[~np.isin(del_keys, ins_keys)]
+                keep &= ~np.isin(base_keys, del_keys)
+
+        new_pairs = ins_pairs
+        if ins_keys.size:
+            new_pairs = ins_pairs[~self._member_mask(base_keys, ins_keys)]
+        new_graph = Graph.from_edges(
+            V, np.concatenate([base[keep], new_pairs]))
+        return new_graph, new_pairs, int((~keep).sum())
+
+    def apply_delta(self, inserts=None, deletes=None) -> "Graph":
+        """:meth:`delta_info`'s new graph, when the change report is not
+        needed (same set semantics)."""
+        return self.delta_info(inserts, deletes)[0]
+
     def relabel(self, perm: np.ndarray) -> "Graph":
         """Relabel vertices: new id of old vertex i is ``perm[i]``."""
         src, dst = self.directed_edges()
@@ -252,6 +359,80 @@ class Graph:
         ok = pos < d_max
         ell[src[ok], pos[ok]] = dst[ok]
         return ell, deg.astype(np.int32)
+
+
+@dataclasses.dataclass(frozen=True)
+class BipartiteGraph:
+    """Host-side bipartite graph: ``num_left`` x ``num_right`` vertices with
+    edges only across the classes, stored as CSR in both directions.
+
+    Partial distance-2 coloring colors one class so that no two vertices of
+    it sharing a neighbor get the same color (distance-1 coloring of that
+    class's one-mode projection). ``repro_torch.core.distance2`` lowers it
+    into the engine's edge space; :func:`repro_torch.core.greedy_ref.
+    greedy_color_pd2` is the serial oracle.
+    """
+
+    num_left: int
+    num_right: int
+    l2r_ptr: np.ndarray  # [L+1] int64
+    l2r_idx: np.ndarray  # [E]   int32 right ids, sorted per row
+    r2l_ptr: np.ndarray  # [R+1] int64
+    r2l_idx: np.ndarray  # [E]   int32 left ids, sorted per row
+
+    @staticmethod
+    def from_edges(num_left: int, num_right: int,
+                   edges: np.ndarray) -> "BipartiteGraph":
+        """Build from an [M, 2] array of (left, right) pairs; duplicates are
+        dropped. Each side's CSR is the two-key lexsort order of the
+        reference."""
+        edges = np.asarray(edges)
+        if edges.size == 0:
+            lv = np.zeros(0, np.int32)
+            rv = np.zeros(0, np.int32)
+        else:
+            lv = edges[:, 0].astype(np.int32)
+            rv = edges[:, 1].astype(np.int32)
+        if lv.size and (lv.min() < 0 or lv.max() >= num_left
+                        or rv.min() < 0 or rv.max() >= num_right):
+            raise ValueError("bipartite edge endpoint out of range")
+
+        def _csr(src, dst, n_src):
+            order = np.lexsort((dst, src))
+            s, d = src[order], dst[order]
+            if s.size:
+                first = np.empty(s.shape, np.bool_)
+                first[0] = True
+                np.logical_or(s[1:] != s[:-1], d[1:] != d[:-1], out=first[1:])
+                s, d = s[first], d[first]
+            ptr = np.zeros(n_src + 1, np.int64)
+            np.cumsum(np.bincount(s, minlength=n_src), out=ptr[1:])
+            return ptr, d.astype(np.int32)
+
+        l2r_ptr, l2r_idx = _csr(lv, rv, num_left)
+        r2l_ptr, r2l_idx = _csr(rv, lv, num_right)
+        return BipartiteGraph(num_left, num_right,
+                              l2r_ptr, l2r_idx, r2l_ptr, r2l_idx)
+
+    @property
+    def num_edges(self) -> int:
+        return int(self.l2r_idx.shape[0])
+
+    def left_degrees(self) -> np.ndarray:
+        return np.diff(self.l2r_ptr).astype(np.int64)
+
+    def right_degrees(self) -> np.ndarray:
+        return np.diff(self.r2l_ptr).astype(np.int64)
+
+    def stats(self) -> dict:
+        ld, rd = self.left_degrees(), self.right_degrees()
+        return {
+            "num_left": self.num_left,
+            "num_right": self.num_right,
+            "num_edges": self.num_edges,
+            "max_left_degree": int(ld.max()) if ld.size else 0,
+            "max_right_degree": int(rd.max()) if rd.size else 0,
+        }
 
 
 @dataclasses.dataclass(frozen=True)

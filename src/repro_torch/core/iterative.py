@@ -23,7 +23,9 @@ each sweep reads its convergence flag.
 The round loop is two-phase (repro_torch.core.frontier): round 0 sweeps the
 full edge list; later rounds compact the pending tail and its incident
 edges into a static slab and sweep that instead, spilling back to the full
-path when the frontier overflows. Bit-identical either way.
+path when the frontier overflows. Bit-identical either way. A warm start
+(committed colors plus a seed mask, the ``"recolor"`` strategy) lets round
+0 take the frontier path too.
 """
 from __future__ import annotations
 
@@ -64,11 +66,18 @@ class ColoringResult:
         return _distinct(self.colors)
 
 
-def _iterative_impl(g: DeviceGraph, *, concurrency: int, max_rounds: int,
+def _iterative_impl(g: DeviceGraph, colors0=None, pending0=None, *,
+                    concurrency: int, max_rounds: int,
                     max_sweeps: int, backend, color_bound: int = 0,
-                    frontier_cap_v: int = 0, frontier_cap_e: int = 0):
-    """The speculation round loop from the cold start (no colors,
-    everything pending; round 0 always sweeps the full edge list).
+                    frontier_cap_v: int = 0, frontier_cap_e: int = 0,
+                    seed_frontier: bool = False):
+    """The speculation round loop. ``colors0``/``pending0`` ([V] int32 /
+    bool, host or device) warm-start it from an existing partial coloring
+    (the ``"recolor"`` strategy's repair entry: committed colors + the
+    conflicted seed set); ``None`` is the cold start (no colors, everything
+    pending). ``seed_frontier`` lets round 0 take the compacted frontier
+    path — off for cold starts, where round 0 is all-pending, on for
+    seeded repairs, where round 0 IS the small conflicted tail.
     Returns ``(colors, rounds, conflicts_per_round, sweeps_per_round,
     frontier_per_round, unconverged)``: colors a device tensor, the
     histories ``[max_rounds]`` int32 numpy arrays."""
@@ -118,8 +127,12 @@ def _iterative_impl(g: DeviceGraph, *, concurrency: int, max_rounds: int,
             write_vert=slab.vert, cpad0=cpad0, max_sweeps=max_sweeps)
         return cpad[:V], n_sweeps, frontier_conflicts(slab, cpad, ppad, V)
 
-    colors = torch.zeros((V,), dtype=torch.int32, device=dev)
-    pending = torch.ones((V,), dtype=torch.bool, device=dev)
+    colors = (torch.zeros((V,), dtype=torch.int32, device=dev)
+              if colors0 is None else
+              torch.as_tensor(colors0).to(dev, torch.int32, copy=True))
+    pending = (torch.ones((V,), dtype=torch.bool, device=dev)
+               if pending0 is None else
+               torch.as_tensor(pending0).to(dev, torch.bool, copy=True))
     conf_hist = np.zeros(max_rounds, np.int32)
     sweep_hist = np.zeros(max_rounds, np.int32)
     front_hist = np.zeros(max_rounds, np.int32)
@@ -131,7 +144,7 @@ def _iterative_impl(g: DeviceGraph, *, concurrency: int, max_rounds: int,
         ppad = torch.cat([pending, pending.new_zeros(1)])
         opad = torch.cat([offset, offset.new_full((1,), _INT32_MAX)])
         fits = False
-        if use_frontier and rnd > 0:
+        if use_frontier and (rnd > 0 or seed_frontier):
             nv, ne = (int(x) for x in frontier_counts(pending, g.inc_ptr))
             fits = nv <= frontier_cap_v and ne <= frontier_cap_e
         if fits:
@@ -161,8 +174,11 @@ def color_iterative(
     """Run ITERATIVE with ``concurrency`` lockstep virtual threads on
     ``device`` (``None`` = the card).
 
-    ``g`` is a host :class:`repro_torch.core.graph.Graph` or a
-    :class:`DeviceGraph`. ``engine`` selects the first-fit inner loop by
+    ``g`` is a :class:`DeviceGraph` (model ``"d1"`` only), or a host
+    :class:`repro_torch.core.graph.Graph` / ``BipartiteGraph`` lowered per
+    ``model``: ``"d1"`` distance-1 (the default), ``"d2"`` distance-2
+    (Graph input), ``"pd2"`` bipartite partial distance-2 (BipartiteGraph
+    input; colors the left class). ``engine`` selects the first-fit inner loop by
     name (``"sort"``, ``"bitmap"``, ``"ell_pallas"``, ``"fused_pallas"``)
     or takes a :class:`repro_torch.core.engine.MexBackend` instance.
     ``color_bound`` optionally caps the table backends' color capacity

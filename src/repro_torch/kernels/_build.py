@@ -13,14 +13,14 @@ needs ``nvcc`` or a card until a kernel launches on a CUDA tensor.
 from __future__ import annotations
 
 import ctypes
-import functools
 import hashlib
 import os
 import shutil
 import subprocess
 import tempfile
+import threading
 from pathlib import Path
-from typing import List, Tuple
+from typing import List, Optional, Tuple
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 _REPO = Path(__file__).resolve().parents[3]
@@ -106,16 +106,27 @@ def build() -> Tuple[Path, str]:
     return lib, "".join(logs) + link.stdout
 
 
-@functools.cache
+_LIB: Optional[ctypes.CDLL] = None
+_LOAD_LOCK = threading.Lock()
+
+
 def load() -> ctypes.CDLL:
-    """The kernels' shared library, built on first use."""
-    path, _ = build()
-    lib = ctypes.CDLL(str(path))
-    for name, (argtypes, restype) in _SIGNATURES.items():
-        fn = getattr(lib, name)
-        fn.argtypes = argtypes
-        fn.restype = restype
-    return lib
+    """The kernels' shared library, built on first use. Two threads whose
+    first launches race (the serving worker and the caller's thread) build
+    and load it once: the first takes the lock, the other waits for it."""
+    global _LIB
+    if _LIB is not None:
+        return _LIB
+    with _LOAD_LOCK:
+        if _LIB is None:
+            path, _ = build()
+            lib = ctypes.CDLL(str(path))
+            for name, (argtypes, restype) in _SIGNATURES.items():
+                fn = getattr(lib, name)
+                fn.argtypes = argtypes
+                fn.restype = restype
+            _LIB = lib
+    return _LIB
 
 
 def check(lib: ctypes.CDLL, rc: int, kernel: str) -> None:

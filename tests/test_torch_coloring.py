@@ -6,8 +6,11 @@ per-round histories. The reference runs its ``bitmap`` engine (the engines
 are bit-identical by its own contract); one case runs its ``fused_pallas``
 kernel in interpret mode. Plus the front door's contracts: one program
 build per same-bucket family, raising without a card unless
-``device="cpu"``, unported registry names raising, and an import that pulls
-in neither JAX nor the reference."""
+``device="cpu"``, the unported ``distributed`` strategy raising, and an
+import that pulls in neither JAX nor the reference. The d2/pd2 models, the
+``recolor`` strategy and serving have their own files
+(``test_torch_models.py``, ``test_torch_dynamic.py``,
+``test_torch_serve.py``)."""
 import os
 import subprocess
 import sys
@@ -174,8 +177,7 @@ def test_entry_points_raise_without_a_card(monkeypatch):
 
 
 @pytest.mark.parametrize("kw,item", [
-    (dict(strategy="distributed"), "A11"), (dict(strategy="recolor"), "A9"),
-    (dict(model="d2"), "A8"), (dict(model="pd2"), "A8")])
+    (dict(strategy="distributed"), "A11")])
 def test_unported_registry_names_raise(kw, item):
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
         T.ColoringSpec(**kw)
@@ -189,14 +191,16 @@ def test_spec_dict_means_the_same_to_both_packages():
                          frontier="off", frontier_capacity=16)
     spec = T.ColoringSpec.from_dict(ref.to_dict())
     assert spec.to_dict() == ref.to_dict()
-    assert T.available_strategies() == ("dataflow", "iterative")
+    assert T.available_strategies() == ("dataflow", "iterative", "recolor")
     with pytest.raises(ValueError, match="unknown"):
         T.ColoringSpec(frontier="sometimes")
 
 
 def test_import_pulls_in_neither_jax_nor_the_reference():
     code = ("import sys, repro_torch, repro_torch.core, repro_torch.kernels, "
-            "repro_torch.convert\n"
+            "repro_torch.convert, repro_torch.core.distance2, "
+            "repro_torch.core.dynamic, repro_torch.serve, "
+            "repro_torch.serve.coloring, repro_torch.train.checkpoint\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')]\n"
             "assert not bad, bad\n")

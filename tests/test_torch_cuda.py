@@ -127,3 +127,50 @@ def test_card_run_equals_cpu_run(engine, card):
         for f in ("conflicts_per_round", "sweeps_per_round",
                   "frontier_sizes_per_round"):
             np.testing.assert_array_equal(getattr(got, f), getattr(want, f))
+
+
+def _same_report(got, want):
+    np.testing.assert_array_equal(got.colors, want.colors)
+    assert got.rounds == want.rounds
+    for f in ("conflicts_per_round", "sweeps_per_round",
+              "frontier_sizes_per_round"):
+        np.testing.assert_array_equal(getattr(got, f), getattr(want, f))
+
+
+@pytest.mark.parametrize("engine", ["ell_pallas", "fused_pallas"])
+def test_d2_plan_on_card_equals_cpu(engine, card):
+    """A d2 plan at scale 10 on the card == the same plan on the CPU. The
+    square's Delta is 682, so the kernels take their wide path (W = 22)."""
+    g = T.rmat.paper_graph("RMAT-G", 10, seed=0)
+    spec = T.ColoringSpec(strategy="iterative", model="d2", engine=engine,
+                          concurrency=16, max_rounds=256)
+    before = launch_counts()
+    got = T.compile_plan(spec, g)(g)
+    after = launch_counts()
+    want = T.compile_plan(spec, g, device="cpu")(g)
+    _same_report(got, want)
+    assert T.validate_d2_coloring(g, got.colors)
+    kernel = "firstfit" if engine == "ell_pallas" else "round_fused"
+    assert after[kernel] > before[kernel]
+
+
+@pytest.mark.parametrize("engine", ["sort", "fused_pallas"])
+def test_warm_start_repair_on_card_equals_cpu(engine, card):
+    """A DynamicColoring delta batch on the card == the same batch on the
+    CPU: same seed, same repair histories (round 0 on the frontier path)."""
+    g = T.rmat.paper_graph("RMAT-ER", 12, seed=0)
+    rng = np.random.default_rng(1)
+    V = g.num_vertices
+    ins = np.stack([rng.integers(0, V, 256), rng.integers(0, V, 256)], 1)
+    dels = g.undirected_edges()[rng.integers(0, g.num_edges, 64)]
+    spec = T.ColoringSpec(strategy="recolor", engine=engine, concurrency=256)
+    card_dyn = T.DynamicColoring(g, spec)
+    cpu_dyn = T.DynamicColoring(g, spec, device="cpu")
+    np.testing.assert_array_equal(card_dyn.colors, cpu_dyn.colors)
+    got, want = (card_dyn.apply_batch(ins, dels),
+                 cpu_dyn.apply_batch(ins, dels))
+    assert got.seed_size == want.seed_size > 0
+    _same_report(got.report, want.report)
+    assert got.report.frontier_sizes_per_round[0] == got.seed_size
+    assert T.validate_coloring(card_dyn.graph, card_dyn.colors)
+    assert card_dyn.plan.traces == 1
