@@ -5,7 +5,7 @@ is right on an NVIDIA card. Run from the repository root:
     python3 chip_smoke.py
 
 Phases, each printing its own lines; any failure raises and exits non-zero.
-They run in the order 1-4, 6-8, 5: the timings come last, on the slabs the
+They run in the order 1-4, 6-9, 5: the timings come last, on the slabs the
 other phases colored.
 
 1. build    — compile the CUDA kernels from ``src/repro_torch/kernels/csrc``
@@ -44,7 +44,22 @@ other phases colored.
               scale-16 requests from 3 tenants, one RMAT-ER scale-18 stream
               per tenant (4 delta batches each), then drain, checkpoint,
               restore, and one more batch on the live and the restored
-              streams, whose colors must be identical.
+              streams, whose colors must be identical;
+9. distributed — ``strategy="distributed"`` on phase 3's scale-22 graph
+              as 4 gloo ranks sharing the card (one process per rank, the
+              payloads staged through pinned host memory): the
+              ``fused_pallas`` run bit-identical to ``ell_pallas``,
+              ``sort``, ``wire="full"`` and ``frontier="off"``, and to a
+              run whose vertex slab (196,608 per rank) holds the last
+              round's pending set, so that round takes the frontier-halo
+              wire (the higher global id recolors, so after round r the
+              first r + 1 ranks of the 1d blocks hold nothing pending, and
+              the last round's set lies on the last rank); valid under
+              the 1d and 2d partitions, a plan on seed 0 serving seeds 0
+              and 1 with one program, the bytes each wire gathered equal to
+              their closed forms; RMAT-B scale 16 on the card equal to the
+              same 4 ranks on CPU tensors; a 1-rank NCCL group (and, with
+              2+ cards, NCCL with a card per rank against gloo).
 
 Ends with a ``{"kernels": [...]}`` line, the card's name and power limit,
 and the result line ``{"ok": true, "device": {...}}``. Imports no JAX and
@@ -76,6 +91,10 @@ SERVE_TENANTS = 3
 SCALE_SERVE = 16
 SCALE_SERVE_STREAM = 18
 SERVE_STREAM_BATCHES = 4    # 4,096 inserts + 1,024 deletes each
+DIST_RANKS = 4              # phase 9: gloo ranks sharing the card
+SCALE_DIST_CPU = 16         # phase 9: RMAT-B, the card against the CPU
+DIST_TIMEOUT_S = 420        # a rank that fails or outlives this fails
+DIST_SLAB_CAP = 196608      # phase 9: a vertex slab the last round fits
 
 
 def log(*args):
@@ -624,6 +643,274 @@ def phase_serve(root):
     return counts
 
 
+# --------------------------------------------------------------------------
+# phase 9: the distributed strategy
+# --------------------------------------------------------------------------
+def _summary(rep) -> dict:
+    import hashlib
+    return dict(sha256=hashlib.sha256(rep.colors.tobytes()).hexdigest(),
+                rounds=rep.rounds, colors=rep.num_colors,
+                sweeps=rep.sweeps_per_round.tolist(),
+                conflicts=rep.conflicts_per_round.tolist(),
+                frontier=rep.frontier_sizes_per_round.tolist())
+
+
+def _same(a: dict, b: dict) -> bool:
+    keys = ("sha256", "rounds", "sweeps", "conflicts")
+    return all(a[k] == b[k] for k in keys)
+
+
+def dist_rank(mesh, graph_dir: str) -> dict:
+    """Phase 9, one rank (``repro_torch.launch`` runs it in a process of
+    its own): the scale-22 runs, then RMAT-B scale 16 on the card and on
+    CPU tensors over the same group. Checks what one rank can check and
+    returns its numbers."""
+    import numpy as np
+    import torch
+    from repro_torch.core import (ColoringSpec, Graph, ProcessMesh, color,
+                                  compile_plan, pad_bucket, partition_graph,
+                                  rmat, validate_coloring)
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.parallel import halo_bytes
+    D = mesh.num_devices
+    out = dict(rank=mesh.rank, route=mesh.route, device=str(mesh.device),
+               backend=mesh.backend)
+    t = time.perf_counter()
+    graphs = []
+    for seed in (0, 1):
+        meta = json.load(open(os.path.join(graph_dir, f"g{seed}.json")))
+        graphs.append(Graph(meta["V"],
+                            np.load(os.path.join(graph_dir,
+                                                 f"g{seed}_row_ptr.npy")),
+                            np.load(os.path.join(graph_dir,
+                                                 f"g{seed}_col_idx.npy"))))
+    out["load_s"] = time.perf_counter() - t
+    g = graphs[0]
+    t = time.perf_counter()
+    lay = partition_graph(g, D)
+    out["partition_1d_s"] = time.perf_counter() - t
+    bound = g.max_degree() + 1
+    Bl, Vp = lay.boundary_local, lay.padded_vertices
+    out.update(Bl=Bl, El=lay.edges_local, Vp=Vp,
+               halo_bytes_per_round=halo_bytes(Bl, bound, D),
+               full_bytes_per_round=Vp * 2)
+    del lay
+
+    main = dict(strategy="distributed", mesh=mesh, engine="fused_pallas")
+    runs = {}
+
+    def run(tag, graph=g, **kw):
+        torch.cuda.synchronize()
+        mesh.bytes_gathered = 0
+        t = time.perf_counter()
+        rep = color(graph, ColoringSpec(**{**main, **kw}))
+        torch.cuda.synchronize()
+        runs[tag] = dict(_summary(rep), wall_s=time.perf_counter() - t,
+                         gathered=mesh.bytes_gathered)
+        return rep
+
+    # ---- the main path and its variations, counted ----------------------
+    reset_launch_counts()
+    rep_main = run("main")
+    run("ell_pallas", engine="ell_pallas")
+    run("sort", engine="sort")
+    run("wire=full", wire="full")
+    run("frontier=off", frontier="off")
+    run("wire=full frontier=off", wire="full", frontier="off")
+    run("frontier slab", frontier_capacity=DIST_SLAB_CAP)
+    t = time.perf_counter()
+    partition_graph(g, D, scheme="2d")
+    out["partition_2d_s"] = time.perf_counter() - t
+    rep_2d = run("partition=2d", partition="2d")
+    # the envelope of both seeds, the halo capacity read off seed 0
+    shape = dataclasses.replace(
+        compile_plan(ColoringSpec(**main), g).statics,
+        padded_edges=pad_bucket(max(x.num_directed_edges for x in graphs)),
+        max_degree=max(x.max_degree() for x in graphs))
+    plan = compile_plan(ColoringSpec(**main), shape)
+    for seed, graph in enumerate(graphs):
+        t = time.perf_counter()
+        prep = plan(graph)
+        torch.cuda.synchronize()
+        runs[f"plan seed {seed}"] = dict(_summary(prep),
+                                         wall_s=time.perf_counter() - t)
+        if seed == 1 and mesh.rank == 0:
+            out["valid_plan_seed1"] = bool(validate_coloring(graph,
+                                                             prep.colors))
+    out["plan_traces"] = plan.traces
+    out["launches"] = launch_counts()
+    if mesh.rank == 0:
+        out["valid_1d"] = bool(validate_coloring(g, rep_main.colors))
+        out["valid_2d"] = bool(validate_coloring(g, rep_2d.colors))
+    for tag in ("ell_pallas", "sort", "wire=full", "frontier=off",
+                "wire=full frontier=off", "frontier slab", "plan seed 0"):
+        assert _same(runs[tag], runs["main"]), f"rank {mesh.rank}: {tag}"
+    for tag, r in runs.items():
+        for i, f in enumerate(r["frontier"]):
+            assert f == 0 or f == r["conflicts"][i - 1], (tag, i)
+    slab_rounds = sum(f > 0 for f in runs["frontier slab"]["frontier"])
+    assert slab_rounds > 0, ("no round took the slab wire",
+                             runs["frontier slab"])
+    # the bytes each wire gathered: the halo map once, each round's
+    # payload, the final colors
+    rounds = runs["frontier=off"]["rounds"]
+    want = D * Bl * 4 + rounds * out["halo_bytes_per_round"] + Vp * 4
+    assert runs["frontier=off"]["gathered"] == want, (runs["frontier=off"],
+                                                       want)
+    rounds = runs["wire=full frontier=off"]["rounds"]
+    want = rounds * out["full_bytes_per_round"] + Vp * 4
+    assert runs["wire=full frontier=off"]["gathered"] == want
+    # a slab round gathers one packed (gid, color) word per slab row
+    r = runs["frontier slab"]
+    cap_v = pad_bucket(min(DIST_SLAB_CAP, Vp // D), min_bucket=8)
+    want = (D * Bl * 4 + (r["rounds"] - slab_rounds)
+            * out["halo_bytes_per_round"] + slab_rounds * D * cap_v * 4
+            + Vp * 4)
+    assert r["gathered"] == want, (r, want)
+    out["slab_rounds"], out["slab_bytes_per_round"] = slab_rounds, D * cap_v * 4
+    out["runs"] = runs
+
+    # device-busy share of one more main request, profiled
+    wall = time.perf_counter()
+    busy, rows = device_busy(lambda: color(g, ColoringSpec(**main)))
+    wall = time.perf_counter() - wall
+    out["busy_s"], out["busy_wall_s"] = busy, wall
+    out["device_time"] = [(n[:60], c, ms) for n, c, ms in rows[:6]]
+    del graphs, g
+
+    # ---- RMAT-B scale 16: the card against CPU tensors on one group ------
+    gb = rmat.paper_graph("RMAT-B", SCALE_DIST_CPU, seed=0)
+    cpu = ProcessMesh(mesh.group, "cpu")
+    small = {}
+    for tag, m, engine in (("card fused_pallas", mesh, "fused_pallas"),
+                           ("card sort", mesh, "sort"),
+                           ("cpu sort", cpu, "sort")):
+        t = time.perf_counter()
+        rep = color(gb, ColoringSpec(**{**main, "mesh": m,
+                                        "engine": engine}))
+        small[tag] = dict(_summary(rep), wall_s=time.perf_counter() - t,
+                          route=m.route)
+    assert _same(small["card sort"], small["cpu sort"])
+    assert _same(small["card fused_pallas"], small["cpu sort"])
+    out["small"] = small
+    return out
+
+
+def nccl_rank(mesh) -> dict:
+    """Phase 9 under NCCL: RMAT-B scale 16 under both wires; a 1-rank
+    group must equal the same run with no group at all."""
+    from repro_torch.core import ColoringSpec, color, rmat
+    gb = rmat.paper_graph("RMAT-B", SCALE_DIST_CPU, seed=0)
+    out = dict(rank=mesh.rank, route=mesh.route, backend=mesh.backend)
+    for wire in ("boundary", "full"):
+        spec = ColoringSpec(strategy="distributed", engine="fused_pallas",
+                            wire=wire)
+        out[wire] = _summary(color(gb, dataclasses.replace(spec, mesh=mesh)))
+        if mesh.num_devices == 1:
+            alone = _summary(color(gb, spec, device=mesh.device))
+            assert _same(out[wire], alone), f"NCCL {wire} != no group"
+    assert _same(out["boundary"], out["full"])
+    return out
+
+
+def phase_distributed(root, graphs):
+    """Phase 9: the distributed strategy on the card (see the docstring
+    at the top)."""
+    import shutil
+    import numpy as np
+    import torch
+    from repro_torch.kernels import KERNELS
+    from repro_torch.launch import run_ranks
+
+    shutil.rmtree(root, ignore_errors=True)
+    gdir = os.path.join(root, "graphs")
+    os.makedirs(gdir)
+    for seed, g in enumerate(graphs):
+        np.save(os.path.join(gdir, f"g{seed}_row_ptr.npy"), g.row_ptr)
+        np.save(os.path.join(gdir, f"g{seed}_col_idx.npy"), g.col_idx)
+        with open(os.path.join(gdir, f"g{seed}.json"), "w") as f:
+            json.dump({"V": g.num_vertices}, f)
+    t = time.perf_counter()
+    ranks = run_ranks("chip_smoke:dist_rank", DIST_RANKS,
+                      dict(graph_dir=gdir), backend="gloo", device="cuda",
+                      timeout=DIST_TIMEOUT_S,
+                      workdir=os.path.join(root, "gloo"))
+    log(f"phase 9 {DIST_RANKS} gloo ranks on "
+        f"{torch.cuda.get_device_name(0)}: {time.perf_counter() - t:.1f} s "
+        f"for the launch (process start, graph load, every run)")
+    r0 = ranks[0]
+    log(f"  graph V={graphs[0].num_vertices} "
+        f"E={graphs[0].num_directed_edges}: Vp={r0['Vp']} El={r0['El']} "
+        f"Bl={r0['Bl']}; wire bytes per round: boundary halo "
+        f"{r0['halo_bytes_per_round']} vs full {r0['full_bytes_per_round']} "
+        f"({r0['full_bytes_per_round'] / max(1, r0['halo_bytes_per_round']):.2f}x)")
+    for r in ranks:
+        m = r["runs"]["main"]
+        busy = (f"device busy {r['busy_s']:.3f} s, "
+                f"{100 * (1 - r['busy_s'] / m['wall_s']):.1f}% idle of the "
+                f"main wall (profiled run {r['busy_wall_s']:.3f} s)"
+                if r["busy_s"] else "device busy not measured")
+        log(f"  rank {r['rank']} ({r['device']}, {r['backend']}, route "
+            f"{r['route']}): load {r['load_s']:.1f} s, partition 1d "
+            f"{r['partition_1d_s']:.2f} s / 2d {r['partition_2d_s']:.2f} s; "
+            f"main wall {m['wall_s']:.3f} s, rounds={m['rounds']} "
+            f"sweeps={m['sweeps']}; {busy}; launches {r['launches']}")
+        for name, calls, ms in r["device_time"]:
+            log(f"    device time: {ms:9.3f} ms in {calls:5d} calls of {name}")
+    for tag, run in r0["runs"].items():
+        log(f"  {tag}: wall {run['wall_s']:.3f} s rounds={run['rounds']} "
+            f"colors={run['colors']} sweeps={run['sweeps']} "
+            f"conflicts={run['conflicts']} frontier={run['frontier']}"
+            + (f" gathered {run['gathered']} B" if "gathered" in run else ""))
+    for r in ranks:
+        for tag in r0["runs"]:
+            assert _same(r["runs"][tag], r0["runs"][tag]), \
+                f"rank {r['rank']} disagrees with rank 0 on {tag}"
+        assert r["plan_traces"] == 1, r["plan_traces"]
+    assert r0["valid_1d"] and r0["valid_2d"] and r0["valid_plan_seed1"]
+    log(f"  frontier slab of {DIST_SLAB_CAP} per rank: "
+        f"{r0['slab_rounds']} round(s) on the slab wire, "
+        f"{r0['slab_bytes_per_round']} B per slab round")
+    log("  fused_pallas == ell_pallas == sort == wire=full == frontier=off "
+        "== frontier slab == plan (bit-identical); 1d, 2d and plan seed 1 "
+        "valid; plan.traces 1; gathered bytes equal the closed forms")
+    for tag, run in r0["small"].items():
+        log(f"  RMAT-B scale {SCALE_DIST_CPU} {tag} ({run['route']} route):"
+            f" wall {run['wall_s']:.3f} s rounds={run['rounds']} "
+            f"sweeps={run['sweeps']} colors={run['colors']}")
+    log(f"  RMAT-B scale {SCALE_DIST_CPU}: the card equals CPU tensors")
+    counts = {k.name: sum(r["launches"][k.name] for r in ranks)
+              for k in KERNELS}
+    for name, n in counts.items():
+        assert n > 0, f"kernel {name} never launched in phase 9"
+
+    t = time.perf_counter()
+    one = run_ranks("chip_smoke:nccl_rank", 1, backend="nccl",
+                    device="cuda", timeout=DIST_TIMEOUT_S,
+                    workdir=os.path.join(root, "nccl1"))
+    log(f"phase 9 NCCL, 1 rank: {time.perf_counter() - t:.1f} s; rounds "
+        f"{one[0]['boundary']['rounds']}, equal to the run with no group "
+        f"under both wires")
+    cards = torch.cuda.device_count()
+    if cards >= 2:
+        n = min(cards, DIST_RANKS)
+        nccl = run_ranks("chip_smoke:nccl_rank", n, backend="nccl",
+                         device="cuda", timeout=DIST_TIMEOUT_S,
+                         workdir=os.path.join(root, f"nccl{n}"))
+        gloo = run_ranks("chip_smoke:nccl_rank", n, backend="gloo",
+                         device="cuda", timeout=DIST_TIMEOUT_S,
+                         workdir=os.path.join(root, f"gloo{n}"))
+        for a, b in zip(nccl, gloo):
+            assert _same(a["boundary"], b["boundary"])
+        log(f"phase 9 NCCL, {n} ranks on {n} cards == gloo")
+    else:
+        log("phase 9 NCCL across cards: not run (one card)")
+    shutil.rmtree(root, ignore_errors=True)
+    log(f"phase 9 launches (sum over ranks): {counts}")
+    log("phase 9 distributed: ok")
+    return counts
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -774,8 +1061,11 @@ def main() -> int:
     counts_stream = phase_stream(graphs[0])
     counts_serve = phase_serve(os.path.join(
         os.path.dirname(os.path.abspath(__file__)), "build", "serve_ckpt"))
+    counts_dist = phase_distributed(os.path.join(
+        os.path.dirname(os.path.abspath(__file__)), "build", "dist"), graphs)
     by_path = {"main": main_counts, "models": counts_models,
-               "stream": counts_stream, "serve": counts_serve}
+               "stream": counts_stream, "serve": counts_serve,
+               "distributed": counts_dist}
 
     # ---- phase 5: timings at the main path's shapes ---------------------
     dg, c, cpad, V, D, runs = real_slabs(graphs[0], reports[0].colors, words)

@@ -15,12 +15,12 @@ Three ways in, strictest first:
 only an explicit ``device="cpu"`` runs the plain path on the host.
 
 Registered strategies: ``"iterative"`` (paper Alg. 2), ``"dataflow"``
-(Alg. 3-5) and ``"recolor"`` (the ITERATIVE loop from a warm start, the
-streaming repair), under models ``"d1"``, ``"d2"`` and ``"pd2"``
+(Alg. 3-5), ``"distributed"`` (the BSP round loop over the ranks of a
+``ProcessMesh``, one process per shard: ``repro_torch.core.distributed``)
+and ``"recolor"`` (the ITERATIVE loop from a warm start, the streaming
+repair), under models ``"d1"``, ``"d2"`` and ``"pd2"``
 (``repro_torch.core.distance2`` lowers the last two into the engine's edge
-space). The reference's ``"distributed"`` strategy raises
-``NotImplementedError`` naming the ROADMAP item that ports it; the spec
-never coerces it to something else.
+space). A distributed spec runs on its mesh's device.
 
 Orderings are applied by relabeling the *constraint* graph before coloring
 and un-relabeling the colors on the way out — reports are always in
@@ -38,24 +38,15 @@ import torch
 
 from .distance2 import MODELS, as_constraint_graph, constraint_host_graph
 from .engine import EngineSpec, MexBackend, get_backend
-from .frontier import FRONTIER_MODES, resolve_frontier
+from .distributed import PARTITION_SCHEMES, ProcessMesh
+from .frontier import (FRONTIER_MODES, frontier_capacities,
+                       resolve_frontier)
 from .graph import (BipartiteGraph, DeviceGraph, DeviceSpec, Graph,
                     pad_bucket, resolve_device)
 from .ordering import ORDERINGS
 
 _LOWERINGS = ("auto", "wedge", "square")
-
-# registry names of the reference that later port slices bring over
-UNPORTED_STRATEGIES = {
-    "distributed": "ROADMAP A11 (distributed: partition_graph + BSP wire)",
-}
-# reference spec fields read only by strategies not ported yet: a spec dict
-# may carry them at their default; any other value is refused
-REFERENCE_ONLY_FIELDS = {
-    "local_concurrency": (1, UNPORTED_STRATEGIES["distributed"]),
-    "wire": ("auto", UNPORTED_STRATEGIES["distributed"]),
-    "partition": ("1d", UNPORTED_STRATEGIES["distributed"]),
-}
+WIRE_MODES = ("auto", "boundary", "full")
 
 
 # --------------------------------------------------------------------------
@@ -68,7 +59,8 @@ class ColoringSpec:
     packages.
 
     strategy     registered :class:`ColoringStrategy` name (or instance):
-                 ``"iterative"`` | ``"dataflow"`` | ``"recolor"``;
+                 ``"iterative"`` | ``"dataflow"`` | ``"distributed"`` |
+                 ``"recolor"``;
     model        coloring semantics: ``"d1"`` | ``"d2"`` | ``"pd2"``
                  (repro_torch.core.distance2);
     engine       first-fit mex backend name/instance (repro_torch.core.engine);
@@ -81,13 +73,20 @@ class ColoringSpec:
     side         the colored class under ``model="pd2"``;
     concurrency  ITERATIVE's lockstep virtual-thread count;
     max_rounds / max_sweeps / color_bound  as on the legacy entry points;
+    mesh         the :class:`repro_torch.core.distributed.ProcessMesh` of
+                 the distributed strategy (None = one shard, no group);
+    local_concurrency  distributed per-rank concurrency (C=1 is the
+                 classic Bozdag scheme);
     frontier     active-set execution: ``"auto"`` | ``"on"`` | ``"off"``
                  (bit-identical results either way);
-    frontier_capacity  static vertex-slab capacity override (0 = ladder).
-
-    The reference's other fields (:data:`REFERENCE_ONLY_FIELDS`) belong to
-    the distributed strategy, not ported yet; ``to_dict``/``from_dict``
-    carry them at their defaults.
+    frontier_capacity  static vertex-slab capacity override (0 = ladder);
+    wire         the distributed round exchange: ``"auto"`` (boundary
+                 wire; a plan whose served graph overflows its halo
+                 capacity spills to a full-wire program built on demand),
+                 ``"boundary"`` (halo overflow raises) or ``"full"``; all
+                 three give the same result;
+    partition    distributed vertex ownership: ``"1d"`` blocks or ``"2d"``
+                 block-cyclic over a rank grid.
     """
 
     strategy: Union[str, "ColoringStrategy"] = "iterative"
@@ -101,8 +100,12 @@ class ColoringSpec:
     max_rounds: int = 64
     max_sweeps: int = 4096
     color_bound: int = 0
+    mesh: Optional[ProcessMesh] = None
+    local_concurrency: int = 1
     frontier: str = "auto"
     frontier_capacity: int = 0
+    wire: str = "auto"
+    partition: str = "1d"
 
     def __post_init__(self):
         if self.model not in MODELS:
@@ -111,41 +114,42 @@ class ColoringSpec:
         if self.lowering not in _LOWERINGS:
             raise ValueError(f"unknown lowering {self.lowering!r}; "
                              f"choose from {_LOWERINGS}")
-        if isinstance(self.strategy, str) \
-                and self.strategy in UNPORTED_STRATEGIES:
-            raise NotImplementedError(
-                f"strategy={self.strategy!r} is not ported to repro_torch "
-                f"yet: {UNPORTED_STRATEGIES[self.strategy]}")
         if self.frontier not in FRONTIER_MODES:
             raise ValueError(f"unknown frontier mode {self.frontier!r}; "
                              f"choose from {FRONTIER_MODES}")
+        if self.wire not in WIRE_MODES:
+            raise ValueError(f"unknown wire mode {self.wire!r}; "
+                             f"choose from {WIRE_MODES}")
+        if self.partition not in PARTITION_SCHEMES:
+            raise ValueError(f"unknown partition scheme {self.partition!r}; "
+                             f"choose from {PARTITION_SCHEMES}")
 
     def resolve(self) -> Tuple["ColoringStrategy", MexBackend]:
         """Resolve the registered pieces (strategy, mex backend) by name."""
         return get_strategy(self.strategy), get_backend(self.engine)
 
     def to_dict(self) -> dict:
-        """JSON-able export: every field by registry *name*, plus the
-        reference-only fields at their defaults."""
-        d = {f.name: getattr(self, f.name) for f in dataclasses.fields(self)}
+        """JSON-able export (the reference's format): every field by
+        registry *name*. Mesh-bound specs are process-local (process
+        groups don't serialize) and are rejected."""
+        if self.mesh is not None:
+            raise ValueError(
+                "mesh-bound specs are process-local and cannot be "
+                "serialized; rebuild the spec with the restoring "
+                "process's mesh instead")
+        d = {f.name: getattr(self, f.name)
+             for f in dataclasses.fields(self) if f.name != "mesh"}
         if not isinstance(d["strategy"], str):
             d["strategy"] = get_strategy(d["strategy"]).name
         if not isinstance(d["engine"], str):
             d["engine"] = get_backend(d["engine"]).name
-        d.update({k: v for k, (v, _) in REFERENCE_ONLY_FIELDS.items()})
         return d
 
     @classmethod
     def from_dict(cls, d: dict) -> "ColoringSpec":
         """Inverse of :meth:`to_dict` (and of the reference's); unknown
-        keys are rejected, and so is a reference-only field away from its
-        default."""
-        d = dict(d)
-        for key, (default, item) in REFERENCE_ONLY_FIELDS.items():
-            if key in d and d.pop(key) != default:
-                raise NotImplementedError(
-                    f"{key}= is read by a part not ported to repro_torch "
-                    f"yet: {item}")
+        keys are rejected by the constructor, so a stale checkpoint fails
+        loudly."""
         return cls(**d)
 
 
@@ -281,11 +285,15 @@ class ColoringStrategy:
     :class:`DeviceGraph` into a :class:`RawColoring`
     (:meth:`device_program`). The base class derives one-shot execution
     (:meth:`oneshot`); :class:`ColoringPlan` builds the program once and
-    feeds it per-call state through :meth:`plan_state`.
+    feeds it per-call state through :meth:`plan_state`. Host-level
+    strategies (the distributed strategy partitions on the host) override
+    :meth:`oneshot` and :meth:`compile` instead and set ``wants = "host"``.
     """
 
     name = "abstract"
     supports_map = True    # plan.map() serves a batch
+    wants = "device"       # "device": the plan hands the program a
+                           # DeviceGraph; "host": the host constraint Graph
 
     def device_program(self, spec: ColoringSpec,
                        backend: MexBackend) -> Callable[..., RawColoring]:
@@ -317,6 +325,16 @@ class ColoringStrategy:
                 f"strategy {self.name!r} takes no per-call state; got "
                 f"{sorted(runtime)}")
         return ()
+
+    def compile(self, spec: ColoringSpec, statics: "PlanShape",
+                device: torch.device,
+                trace_hook: Callable[[], None]) -> Callable:
+        """Plan-time build of a host strategy: returns the executor
+        ``host Graph -> RawColoring``; ``trace_hook`` runs once per program
+        the executor builds (the plan counts them)."""
+        raise NotImplementedError(
+            f"strategy {self.name!r} consumes a DeviceGraph; plans build "
+            "its device_program")
 
 
 _REGISTRY: Dict[str, ColoringStrategy] = {}
@@ -476,8 +494,126 @@ class RecolorStrategy(ColoringStrategy):
         return colors, seed
 
 
+@dataclasses.dataclass(frozen=True)
+class DistributedStrategy(ColoringStrategy):
+    """The Bozdag-style BSP coloring over the ranks of a process mesh —
+    distributed.py. A host strategy: every rank partitions the constraint
+    graph itself, so plans hand it the host graph. ``plan.map`` is
+    unsupported (one mesh program is already the batch)."""
+
+    name = "distributed"
+    supports_map = False
+    wants = "host"
+
+    @staticmethod
+    def _mesh(spec: ColoringSpec, device: DeviceSpec = None) -> ProcessMesh:
+        return spec.mesh if spec.mesh is not None else ProcessMesh(None, device)
+
+    def _build(self, spec: ColoringSpec, mesh: ProcessMesh, *,
+               verts_local: int, edges_local: int, max_colors: int,
+               ell_width: int, wire: str = "boundary", wire_colors: int = 0):
+        from .distributed import build_distributed_coloring
+        fcv = fce = 0
+        if spec.frontier != "off":
+            # per-shard slabs: the round loop recovers incident-edge
+            # pointers on the device, so the frontier is always available
+            fcv, fce = frontier_capacities(
+                verts_local, edges_local, ell_width,
+                capacity=int(spec.frontier_capacity))
+        return build_distributed_coloring(
+            mesh, verts_local, edges_local,
+            local_concurrency=int(spec.local_concurrency),
+            max_rounds=int(spec.max_rounds),
+            max_sweeps=int(spec.max_sweeps),
+            engine=spec.engine, max_colors=max_colors, ell_width=ell_width,
+            frontier_cap_v=fcv, frontier_cap_e=fce,
+            wire=wire, wire_colors=wire_colors)
+
+    @staticmethod
+    def _max_colors(spec: ColoringSpec, max_degree: int) -> int:
+        max_colors = max_degree + 1
+        if spec.color_bound > 0:
+            max_colors = min(max_colors, int(spec.color_bound))
+        return max_colors
+
+    def _raw(self, spec: ColoringSpec, layout, out) -> RawColoring:
+        colors, rounds, conf, sweeps, fronts = out
+        colors = layout.unpermute(colors.cpu().numpy())
+        unconverged = bool(rounds >= int(spec.max_rounds)
+                           and rounds > 0 and conf[rounds - 1] > 0)
+        return RawColoring(torch.from_numpy(colors), rounds, conf, sweeps,
+                           unconverged, fronts)
+
+    def oneshot(self, spec, g, device=None) -> RawColoring:
+        from .distributed import partition_graph
+        if isinstance(g, DeviceGraph):
+            raise TypeError("the distributed strategy partitions on the "
+                            "host: pass a Graph/BipartiteGraph")
+        host = constraint_host_graph(g, spec.model, side=spec.side)
+        mesh = self._mesh(spec, device)
+        layout = partition_graph(host, mesh.num_devices,
+                                 scheme=spec.partition)
+        # one-shot slabs fit the graph exactly, so "auto" never spills
+        wire = "full" if spec.wire == "full" else "boundary"
+        fn = self._build(spec, mesh, verts_local=layout.verts_local,
+                         edges_local=layout.edges_local,
+                         max_colors=self._max_colors(spec, host.max_degree()),
+                         ell_width=host.max_degree(), wire=wire,
+                         wire_colors=host.max_degree() + 1)
+        return self._raw(spec, layout,
+                         fn(layout.lsrc, layout.ldst, layout.bnd))
+
+    def compile(self, spec, statics, device, trace_hook):
+        from .distributed import partition_graph
+        mesh = self._mesh(spec, device)
+        D = mesh.num_devices
+        Vl = -(-statics.num_vertices // D)
+        # slab capacity: even-split share + R-MAT-skew headroom, bucketed;
+        # a graph whose densest partition overflows it raises at call time
+        slab = pad_bucket(int(-(-statics.padded_edges // D) * 1.35))
+        use_boundary = spec.wire != "full"
+        # wire_colors is the UNCAPPED Delta+1: packed entries must hold any
+        # color the solve can assign; color_bound caps only the tables
+        bcap = int(statics.boundary_cap) if use_boundary else 0
+        kw = dict(verts_local=Vl, edges_local=slab,
+                  max_colors=self._max_colors(spec, statics.max_degree),
+                  ell_width=statics.max_degree,
+                  wire_colors=statics.max_degree + 1)
+        programs: Dict[str, Callable] = {}
+
+        def program(wire: str) -> Callable:
+            # built at its first call, counted once; the spill program
+            # (wire="auto" halo overflow) is built only if a graph needs it
+            if wire not in programs:
+                trace_hook()
+                programs[wire] = self._build(spec, mesh, wire=wire, **kw)
+            return programs[wire]
+
+        def executor(host: Graph) -> RawColoring:
+            layout = partition_graph(host, D, pad_edges_to=slab,
+                                     scheme=spec.partition)
+            # the full wire never reads bnd: a fixed [D, 1] dummy
+            dummy = np.full((D, 1), layout.verts_local, np.int32)
+            if not use_boundary:
+                run, bnd = program("full"), dummy
+            elif layout.boundary_local <= bcap:
+                run, bnd = program("boundary"), layout.padded_boundary(bcap)
+            elif spec.wire == "boundary":
+                raise ValueError(
+                    f"graph has {layout.boundary_local} boundary vertices "
+                    f"on its densest shard, above the plan halo capacity "
+                    f"{bcap}; compile a plan from this graph, or use "
+                    "wire='auto' to spill to the full-gather wire")
+            else:
+                run, bnd = program("full"), dummy
+            return self._raw(spec, layout, run(layout.lsrc, layout.ldst, bnd))
+
+        return executor
+
+
 register_strategy(IterativeStrategy())
 register_strategy(DataflowStrategy())
+register_strategy(DistributedStrategy())
 register_strategy(RecolorStrategy())
 
 
@@ -493,12 +629,20 @@ class PlanShape:
     padded_edges   directed-edge capacity (graphs pad up to it);
     max_degree     max-degree bound: sizes the table backends' color
                    capacity and the ELL slab width. Graphs above it are
-                   rejected (a too-small table silently drops forbids).
+                   rejected (a too-small table silently drops forbids);
+    boundary_cap   distributed halo capacity: the per-shard boundary slab
+                   width the plan's boundary wire pins (``_plan_shape``
+                   derives it, with headroom, by partitioning the compile
+                   graph). 0 = no halo slab — right for device-strategy
+                   plans and one-shard meshes; a served graph overflowing
+                   it spills to the full wire (``wire="auto"``) or is
+                   rejected (``wire="boundary"``).
     """
 
     num_vertices: int
     padded_edges: int
     max_degree: int
+    boundary_cap: int = 0
 
 
 def _plan_shape(spec: ColoringSpec, graph_or_shape) -> PlanShape:
@@ -509,9 +653,22 @@ def _plan_shape(spec: ColoringSpec, graph_or_shape) -> PlanShape:
             "compile_plan needs a host Graph/BipartiteGraph (plans lower, "
             "relabel and pad on host) or an explicit PlanShape")
     host = constraint_host_graph(graph_or_shape, spec.model, side=spec.side)
+    boundary_cap = 0
+    D = spec.mesh.num_devices if spec.mesh is not None else 1
+    if get_strategy(spec.strategy).wants == "host" and spec.wire != "full" \
+            and D > 1:
+        # halo envelope of the boundary wire: partition the compile graph
+        # and give the densest shard's boundary count the edge slab's skew
+        # headroom, capped at Vl (every vertex boundary)
+        from .distributed import partition_graph
+        Bl = partition_graph(host, D, scheme=spec.partition).boundary_local
+        if Bl:
+            Vl = -(-host.num_vertices // D)
+            boundary_cap = min(Vl, pad_bucket(int(Bl * 1.35)))
     return PlanShape(num_vertices=host.num_vertices,
                      padded_edges=pad_bucket(host.num_directed_edges),
-                     max_degree=host.max_degree())
+                     max_degree=host.max_degree(),
+                     boundary_cap=boundary_cap)
 
 
 class ColoringPlan:
@@ -531,13 +688,15 @@ class ColoringPlan:
     first call and pinned to the envelope: every served graph is laid out
     with the same shapes and static fields, so the count stays at 1 however
     many same-bucket graphs are served (``map`` included); the tests pin
-    this.
+    this. A distributed ``wire="auto"`` plan builds its full-wire spill
+    program once, the first time a served graph overflows the halo
+    capacity (2 builds).
     """
 
     def __init__(self, spec: ColoringSpec, graph_or_shape,
                  device: DeviceSpec = None):
         self.spec = spec
-        self.device = resolve_device(device)
+        self.device = resolve_device(_spec_device(spec, device))
         self.strategy, self._backend = spec.resolve()
         self.statics = _plan_shape(spec, graph_or_shape)
         if spec.ordering not in ORDERINGS:
@@ -547,25 +706,37 @@ class ColoringPlan:
         # served graph is vacuously colored with color 1
         self._degenerate = (self.statics.num_vertices == 0
                             or self.statics.padded_edges == 0)
+        self._traces = 0
         self._program: Optional[Callable[[DeviceGraph], RawColoring]] = None
+        self._executor: Optional[Callable] = None
+        if self.strategy.wants == "host" and not self._degenerate:
+            self._executor = self.strategy.compile(
+                spec, self.statics, self.device, self._count_trace)
+
+    def _count_trace(self):
+        self._traces += 1
 
     @property
     def traces(self) -> int:
-        """Number of program builds taken by this plan (0 or 1)."""
-        return int(self._program is not None)
+        """Number of program builds taken by this plan."""
+        return self._traces
 
-    def _run(self, dg: DeviceGraph, *state) -> RawColoring:
+    def _run(self, canon, *state) -> RawColoring:
+        if self._executor is not None:
+            return self._executor(canon, *state)
         if self._program is None:
+            self._count_trace()
             self._program = self.strategy.device_program(self.spec,
                                                          self._backend)
-        return self._program(dg, *state)
+        return self._program(canon, *state)
 
-    def _canonicalize(self, g) -> Tuple[DeviceGraph, Optional[np.ndarray]]:
-        """Host graph -> (canonical DeviceGraph, relabel perm or None):
-        lower the model (square lowering: paddable, dedup'd), apply the
-        ordering relabel, pad edges to the bucket, and pin the static
-        DeviceGraph fields to the plan envelope so every served graph has
-        the same static signature."""
+    def _canonicalize(self, g) -> Tuple[object, Optional[np.ndarray]]:
+        """Host graph -> (canonical input, relabel perm or None): lower the
+        model (square lowering: paddable, dedup'd), apply the ordering
+        relabel, and — for device strategies — pad edges to the bucket and
+        pin the static DeviceGraph fields to the plan envelope so every
+        served graph has the same static signature. Host strategies get the
+        checked host constraint graph."""
         spec, st = self.spec, self.statics
         host = constraint_host_graph(g, spec.model, side=spec.side)
         if host.num_vertices != st.num_vertices:
@@ -587,6 +758,8 @@ class ColoringPlan:
                 f"graph max degree {host.max_degree()} exceeds the plan "
                 f"bound {st.max_degree}; compile a plan with a larger "
                 "PlanShape.max_degree (the color tables would drop forbids)")
+        if self.strategy.wants == "host":
+            return host, perm
         layout = ("edges", "ell") if self._backend.needs_ell else "edges"
         dg = host.to_device(layout=layout, pad_edges_to=st.padded_edges,
                             ell_width=max(1, st.max_degree),
@@ -596,6 +769,16 @@ class ColoringPlan:
         dg = dataclasses.replace(dg, num_directed_edges=st.padded_edges,
                                  max_degree=st.max_degree)
         return dg, perm
+
+    def wire_cost(self) -> Optional[dict]:
+        """The reference's closed-form bytes-on-wire table of a distributed
+        plan (``None`` for the other strategies). It is computed by the
+        reference's static analyzer, which is not ported yet."""
+        if self.strategy.wants != "host":
+            return None
+        raise NotImplementedError(
+            "ColoringPlan.wire_cost needs the static analyzer "
+            "(analysis/wirecost.py), not ported yet: ROADMAP A14")
 
     def __call__(self, g, **runtime) -> ColoringReport:
         """Color ``g`` through the plan's program. ``runtime`` kwargs are
@@ -635,6 +818,17 @@ class ColoringPlan:
                 for raw, perm in raws]
 
 
+def _spec_device(spec: ColoringSpec, device: DeviceSpec) -> DeviceSpec:
+    """The device a spec runs on: a mesh-bound spec runs on its mesh's
+    device, and a ``device=`` of another type is refused."""
+    if spec.mesh is None:
+        return device
+    if device is not None and torch.device(device).type != spec.mesh.device.type:
+        raise ValueError(f"device={device!r}, but the spec's mesh runs on "
+                         f"{spec.mesh.device}")
+    return spec.mesh.device
+
+
 def compile_plan(spec: ColoringSpec, graph_or_shape,
                  device: DeviceSpec = None) -> ColoringPlan:
     """Build ``spec`` against a host graph (or an explicit
@@ -663,6 +857,7 @@ def color(g, spec: Optional[ColoringSpec] = None, device: DeviceSpec = None,
     spec = ColoringSpec() if spec is None else spec
     if overrides:
         spec = dataclasses.replace(spec, **overrides)
+    device = _spec_device(spec, device)
     if not isinstance(g, DeviceGraph):
         resolve_device(device)
     strategy = get_strategy(spec.strategy)

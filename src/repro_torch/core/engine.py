@@ -421,6 +421,22 @@ def lockstep_offsets(pending: torch.Tensor, concurrency: int) -> torch.Tensor:
     return torch.where(pending, rank % bs, torch.zeros_like(rank))
 
 
+def conflict_rows(masked_src: torch.Tensor, masked_dst: torch.Tensor,
+                  src_ids: torch.Tensor, dst_ids: torch.Tensor,
+                  rows: torch.Tensor, num_rows: int) -> torch.Tensor:
+    """Alg. 2 phase 2 through the ``conflict_mask`` kernel, with the ids
+    the predicate compares apart from the rows it queues: edge e fires iff
+    ``masked_src[e] == masked_dst[e] > 0`` and ``src_ids[e] > dst_ids[e]``
+    (the masked colors are 0 at every non-pending endpoint), and an
+    ``amax`` scatter into ``[num_rows+1]`` queues ``rows[e]`` (row
+    ``num_rows`` = sink). The distributed conflict pass compares global ids
+    and queues local rows. Returns the pending mask [num_rows] bool."""
+    conf_e = conflict_mask(masked_src, masked_dst, src_ids, dst_ids)
+    out = torch.zeros((num_rows + 1,), dtype=torch.int32, device=rows.device)
+    out.scatter_reduce_(0, rows.long(), conf_e, "amax")
+    return out[:num_rows].bool()
+
+
 def conflict_pending(src: torch.Tensor, dst: torch.Tensor,
                      masked: torch.Tensor, num_vertices: int) -> torch.Tensor:
     """Alg. 2 phase 2 through the ``conflict_mask`` kernel: ``masked`` is
@@ -431,11 +447,7 @@ def conflict_pending(src: torch.Tensor, dst: torch.Tensor,
     Returns the next round's pending mask [V] bool."""
     s = torch.clamp(src, max=num_vertices)
     d = torch.clamp(dst, max=num_vertices)
-    conf_e = conflict_mask(masked[s], masked[d], src, dst)
-    out = torch.zeros((num_vertices + 1,), dtype=torch.int32,
-                      device=src.device)
-    out.scatter_reduce_(0, s.long(), conf_e, "amax")
-    return out[:num_vertices].bool()
+    return conflict_rows(masked[s], masked[d], src, dst, s, num_vertices)
 
 
 def speculation_conflicts(src: torch.Tensor, dst: torch.Tensor,

@@ -24,7 +24,7 @@ writes into sink slots one past the end.
 """
 from __future__ import annotations
 
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -86,7 +86,7 @@ class FrontierSlab(NamedTuple):
     vert:  [cap_v] int32 vertex id of each slab row; ``V`` = empty row.
     owner: [cap_e] int32 slab row owning each slab edge; ``cap_v`` = pad.
     src:   [cap_e] int32 vertex id of the owning row; ``V`` = pad.
-    dst:   [cap_e] int32 edge target; ``V`` = pad.
+    dst:   [cap_e] int32 edge target; ``V`` (or ``dst_pad``) = pad.
     slot:  [cap_e] int32 position of the edge within its row.
     nv/ne: 0-d int32 true active counts — may EXCEED the capacities;
            callers must spill to the full path when they do.
@@ -112,20 +112,24 @@ def frontier_counts(active: torch.Tensor,
 
 
 def compact_frontier(active: torch.Tensor, inc_ptr: torch.Tensor,
-                     dst: torch.Tensor, cap_v: int, cap_e: int) -> FrontierSlab:
+                     dst: torch.Tensor, cap_v: int, cap_e: int, *,
+                     dst_pad: Optional[int] = None) -> FrontierSlab:
     """Compact the active vertices and their incident CSR rows into a
     :class:`FrontierSlab` — no sort: a rank cumsum places vertices, a
     degree cumsum + scatter + running max assigns edges to rows, and one
     gather through ``inc_ptr`` pulls the edge targets.
 
     ``active`` [V] bool; ``inc_ptr`` [V+1] int32 row pointers into ``dst``
-    (rows contiguous); padded slab edges point at V. Overflow never
+    (rows contiguous); padded slab edges point at ``dst_pad`` (default V;
+    the distributed round loop passes its global phantom id, since its edge
+    targets are global while its rows are local). Overflow never
     corrupts: rows landing beyond the capacities go to the sinks, and
     ``nv``/``ne`` report the TRUE counts so callers spill. A graph with no
     edges gives an empty slab with ``nv`` equal to the active count and
     ``ne = 0``.
     """
     V = active.shape[0]
+    fill = V if dst_pad is None else int(dst_pad)
     dev = active.device
     deg = inc_ptr[1:] - inc_ptr[:-1]
     nv, ne = frontier_counts(active, inc_ptr)
@@ -158,12 +162,12 @@ def compact_frontier(active: torch.Tensor, inc_ptr: torch.Tensor,
         gidx = inc_ptr[torch.clamp(src, max=V)] + slot
         gdst = dst[torch.clamp(gidx, 0, dst.shape[0] - 1)]
     else:
-        gdst = torch.full_like(eidx, V)
+        gdst = torch.full_like(eidx, fill)
     return FrontierSlab(
         vert=vert,
         owner=torch.where(valid, owner, torch.full_like(owner, cap_v)),
         src=torch.where(valid, src, torch.full_like(src, V)),
-        dst=torch.where(valid, gdst, torch.full_like(gdst, V)),
+        dst=torch.where(valid, gdst, torch.full_like(gdst, fill)),
         slot=torch.where(valid, slot, torch.zeros_like(slot)),
         nv=nv, ne=ne)
 

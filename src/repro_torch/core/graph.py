@@ -1,6 +1,6 @@
 """Graph containers for the coloring engine (PyTorch port).
 
-Three representations:
+Four representations:
 
 * :class:`Graph` — host-side (numpy) CSR + directed edge list. Construction,
   dedup, symmetrization, stats and streaming edge deltas live here.
@@ -16,6 +16,9 @@ Three representations:
   ``Graph.to_device(layout=...)`` optionally the CSR arrays and/or the ELL
   geometry (per-edge slot map + static width) the ``ell_pallas`` and
   ``fused_pallas`` engines scatter through.
+* :class:`ShardLayout` — host-side (numpy) shard-local CSR + boundary halo
+  map of a graph partitioned over the ranks of a process mesh
+  (``repro_torch.core.distributed.partition_graph``).
 
 Conventions
 -----------
@@ -482,3 +485,91 @@ class DeviceGraph:
         """True when the incident-edge auxiliary is present, i.e. the
         frontier execution layer can compact active sets on this graph."""
         return self.inc_ptr is not None
+
+
+@dataclasses.dataclass(frozen=True)
+class ShardLayout:
+    """Shard-local CSR + halo layout: the partitioned form of a host
+    :class:`Graph`, built by ``repro_torch.core.distributed.partition_graph``
+    (a host numpy object, as in the reference).
+
+    Shard ``d`` owns partition-space vertices ``[d*Vl, (d+1)*Vl)``. Each
+    local vertex is **interior** (no cross-shard edge: its color never
+    leaves the shard) or **boundary** (some neighbor lives on another
+    shard). ``bnd`` is the static index map of the boundary set into a
+    fixed per-shard halo slab: the boundary wire gathers only those entries
+    and scatters them back through the same (static) global ids.
+
+    lsrc [D, El]     local src ids, row-contiguous per shard (CSR order),
+                     pad = ``Vl``;
+    ldst [D, El]     partition-space global dst ids, pad = ``Vl*D``;
+    bnd  [D, Bl]     local ids of each shard's boundary vertices, pad =
+                     ``Vl`` (``Bl`` = max boundary count, or the pinned
+                     ``pad_boundary_to`` capacity);
+    perm [V] or None original-id -> partition-space-id map (``"2d"``
+                     block-cyclic scheme; ``None`` = identity, ``"1d"``).
+
+    Iterating yields the legacy ``(lsrc, ldst, verts_local)`` triple.
+    """
+
+    lsrc: np.ndarray
+    ldst: np.ndarray
+    bnd: np.ndarray
+    verts_local: int
+    num_vertices: int
+    num_devices: int
+    scheme: str = "1d"
+    perm: Optional[np.ndarray] = None
+    boundary_counts: Optional[np.ndarray] = None
+
+    def __iter__(self):
+        return iter((self.lsrc, self.ldst, self.verts_local))
+
+    @property
+    def edges_local(self) -> int:
+        return int(self.lsrc.shape[1])
+
+    @property
+    def boundary_local(self) -> int:
+        return int(self.bnd.shape[1])
+
+    @property
+    def padded_vertices(self) -> int:
+        return int(self.verts_local * self.num_devices)
+
+    @property
+    def interior_counts(self) -> np.ndarray:
+        if self.perm is not None:
+            owned = np.bincount(np.asarray(self.perm) // self.verts_local,
+                                minlength=self.num_devices)
+        else:
+            owned = np.minimum(
+                np.maximum(self.num_vertices
+                           - np.arange(self.num_devices) * self.verts_local,
+                           0),
+                self.verts_local)
+        return owned - np.asarray(self.boundary_counts)
+
+    def padded_boundary(self, cap: int) -> np.ndarray:
+        """``bnd`` widened (pad = ``Vl``) to a pinned capacity — the plan
+        path, where every served graph must give identically shaped halo
+        slabs. A graph whose densest boundary exceeds ``cap`` is rejected
+        rather than truncated (a truncated halo would drop remote reads)."""
+        Bl = self.boundary_local
+        if Bl > cap:
+            raise ValueError(
+                f"densest shard holds {Bl} boundary vertices, above the "
+                f"requested halo capacity pad_boundary_to={cap}")
+        out = np.full((self.num_devices, int(cap)), self.verts_local,
+                      np.int32)
+        out[:, :Bl] = self.bnd
+        return out
+
+    def unpermute(self, colors: np.ndarray) -> np.ndarray:
+        """Colors in partition space ``[Vl*D]`` -> original vertex ids
+        ``[V]`` (inverts the ``"2d"`` relabel; a ``"1d"`` layout just trims
+        the vertex padding)."""
+        colors = np.asarray(colors).reshape(-1)
+        if self.perm is None:
+            return colors[:self.num_vertices]
+        return colors[self.perm]

@@ -6,11 +6,12 @@ per-round histories. The reference runs its ``bitmap`` engine (the engines
 are bit-identical by its own contract); one case runs its ``fused_pallas``
 kernel in interpret mode. Plus the front door's contracts: one program
 build per same-bucket family, raising without a card unless
-``device="cpu"``, the unported ``distributed`` strategy raising, and an
-import that pulls in neither JAX nor the reference. The d2/pd2 models, the
-``recolor`` strategy and serving have their own files
+``device="cpu"``, spec dicts that mean the same to both packages
+(distributed fields included), and an import that pulls in neither JAX
+nor the reference. The d2/pd2 models, the ``recolor`` strategy, serving
+and the distributed strategy have their own files
 (``test_torch_models.py``, ``test_torch_dynamic.py``,
-``test_torch_serve.py``)."""
+``test_torch_serve.py``, ``test_torch_distributed.py``)."""
 import os
 import subprocess
 import sys
@@ -176,13 +177,21 @@ def test_entry_points_raise_without_a_card(monkeypatch):
     assert T.color(g, device="cpu").rounds >= 1
 
 
-@pytest.mark.parametrize("kw,item", [
-    (dict(strategy="distributed"), "A11")])
-def test_unported_registry_names_raise(kw, item):
-    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-        T.ColoringSpec(**kw)
-    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-        T.ColoringSpec.from_dict(R.ColoringSpec(**kw).to_dict())
+def test_distributed_spec_dict_round_trips():
+    ref = R.ColoringSpec(strategy="distributed", engine="ell_pallas",
+                         wire="full", partition="2d", local_concurrency=4,
+                         frontier="off", max_sweeps=16384)
+    spec = T.ColoringSpec.from_dict(ref.to_dict())
+    assert (spec.wire, spec.partition, spec.local_concurrency) == \
+        ("full", "2d", 4)
+    assert spec.to_dict() == ref.to_dict()
+    assert R.ColoringSpec.from_dict(spec.to_dict()) == ref
+
+
+def test_distributed_strategy_is_registered():
+    assert "distributed" in T.available_strategies()
+    strategy = T.get_strategy("distributed")
+    assert strategy.wants == "host" and not strategy.supports_map
 
 
 def test_spec_dict_means_the_same_to_both_packages():
@@ -191,7 +200,8 @@ def test_spec_dict_means_the_same_to_both_packages():
                          frontier="off", frontier_capacity=16)
     spec = T.ColoringSpec.from_dict(ref.to_dict())
     assert spec.to_dict() == ref.to_dict()
-    assert T.available_strategies() == ("dataflow", "iterative", "recolor")
+    assert T.available_strategies() == ("dataflow", "distributed",
+                                         "iterative", "recolor")
     with pytest.raises(ValueError, match="unknown"):
         T.ColoringSpec(frontier="sometimes")
 
@@ -200,7 +210,9 @@ def test_import_pulls_in_neither_jax_nor_the_reference():
     code = ("import sys, repro_torch, repro_torch.core, repro_torch.kernels, "
             "repro_torch.convert, repro_torch.core.distance2, "
             "repro_torch.core.dynamic, repro_torch.serve, "
-            "repro_torch.serve.coloring, repro_torch.train.checkpoint\n"
+            "repro_torch.serve.coloring, repro_torch.train.checkpoint, "
+            "repro_torch.core.distributed, repro_torch.parallel, "
+            "repro_torch.core.comm_schedule, repro_torch.launch\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')]\n"
             "assert not bad, bad\n")

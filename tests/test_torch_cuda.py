@@ -174,3 +174,44 @@ def test_warm_start_repair_on_card_equals_cpu(engine, card):
     assert got.report.frontier_sizes_per_round[0] == got.seed_size
     assert T.validate_coloring(card_dyn.graph, card_dyn.colors)
     assert card_dyn.plan.traces == 1
+
+
+def dist_rank(mesh):
+    """One rank of the distributed test below: both ELL engines, frontier
+    off and auto, and this rank's kernel launches."""
+    from repro_torch.kernels import reset_launch_counts
+    g = T.rmat.paper_graph("RMAT-B", 10, seed=3)
+    reset_launch_counts()
+    out = {}
+    for engine in ("ell_pallas", "fused_pallas"):
+        for fr in ("off", "auto"):
+            rep = T.color(g, T.ColoringSpec(strategy="distributed", mesh=mesh,
+                                            engine=engine, frontier=fr))
+            out[f"{engine}/{fr}"] = dict(
+                colors=rep.colors.tolist(), rounds=rep.rounds,
+                conf=rep.conflicts_per_round.tolist(),
+                sweeps=rep.sweeps_per_round.tolist(),
+                front=rep.frontier_sizes_per_round.tolist())
+    out["launches"] = launch_counts()
+    out["route"] = mesh.route
+    return out
+
+
+def test_distributed_two_ranks_on_card_equal_cpu(card, tmp_path):
+    """Two gloo ranks sharing the card (payloads staged through pinned host
+    memory) equal the same two ranks on CPU tensors."""
+    from repro_torch.launch import run_ranks
+    on_card = run_ranks("test_torch_cuda:dist_rank", 2, device="cuda",
+                        timeout=300, workdir=str(tmp_path / "cuda"))
+    on_cpu = run_ranks("test_torch_cuda:dist_rank", 2, device="cpu",
+                       timeout=300, workdir=str(tmp_path / "cpu"))
+    for a, b in zip(on_card, on_cpu):
+        assert a["route"] == "host" and b["route"] == "device"
+        for key in a:
+            if "/" in key:
+                assert a[key] == b[key], key
+        assert a["ell_pallas/off"] == a["fused_pallas/auto"] | {
+            "front": a["ell_pallas/off"]["front"]}
+        for name in ("firstfit", "round_fused", "conflict_mask"):
+            assert a["launches"][name] > 0, name
+            assert b["launches"][name] == 0, name
