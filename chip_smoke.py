@@ -5,7 +5,7 @@ is right on an NVIDIA card. Run from the repository root:
     python3 chip_smoke.py
 
 Phases, each printing its own lines; any failure raises and exits non-zero.
-They run in the order 1-4, 6-9, 5: the timings come last, on the slabs the
+They run in the order 1-4, 6-10, 5: the timings come last, on the slabs the
 other phases colored.
 
 1. build    — compile the CUDA kernels from ``src/repro_torch/kernels/csrc``
@@ -56,10 +56,21 @@ other phases colored.
               first r + 1 ranks of the 1d blocks hold nothing pending, and
               the last round's set lies on the last rank); valid under
               the 1d and 2d partitions, a plan on seed 0 serving seeds 0
-              and 1 with one program, the bytes each wire gathered equal to
-              their closed forms; RMAT-B scale 16 on the card equal to the
+              and 1 with one program (compiled with ``verify="error"``),
+              the bytes each plan request gathered equal to its
+              ``plan.wire_cost()``; RMAT-B scale 16 on the card equal to the
               same 4 ranks on CPU tensors; a 1-rank NCCL group (and, with
-              2+ cards, NCCL with a card per rank against gloo).
+              2+ cards, NCCL with a card per rank against gloo);
+10. analysis — ``repro_torch.analysis`` on the card: the registry and
+              distributed sweeps on the card equal the same sweeps on CPU
+              tensors and the committed baseline (no new finding, no stale
+              entry, no ANALYSIS000); ``compile_plan(verify="error")`` passes
+              for the scale-22 main plan (which then serves seed 0 as in
+              phase 3), the phase-6 d2 plan and phase 9's 4-rank plan (the
+              SPMD passes over all four ranks' recordings); the skew plan's
+              shared memory fits the card's opt-in limit, and a color bound
+              whose bitset does not raises VMEM001; registers and local
+              bytes per kernel from ``cudaFuncGetAttributes``.
 
 Ends with a ``{"kernels": [...]}`` line, the card's name and power limit,
 and the result line ``{"ok": true, "device": {...}}``. Imports no JAX and
@@ -660,18 +671,30 @@ def _same(a: dict, b: dict) -> bool:
     return all(a[k] == b[k] for k in keys)
 
 
+def wire_cost_bytes(r: dict) -> int:
+    """The bytes a distributed plan request gathers by its plan's
+    ``wire_cost()`` table: per tier, and the final colors."""
+    tiers = r["cost"]["tiers"]
+    slab = sum(f > 0 for f in r["frontier"])
+    per_round = tiers["halo" if "halo" in tiers else "spill"]
+    return (tiers.get("setup", {}).get("bytes_once", 0)
+            + (r["rounds"] - slab) * per_round["bytes_per_round"]
+            + slab * tiers.get("slab", {}).get("bytes_per_round", 0)
+            + r["cost"]["verts_global"] * 4)
+
+
 def dist_rank(mesh, graph_dir: str) -> dict:
     """Phase 9, one rank (``repro_torch.launch`` runs it in a process of
     its own): the scale-22 runs, then RMAT-B scale 16 on the card and on
     CPU tensors over the same group. Checks what one rank can check and
     returns its numbers."""
+    import collections
     import numpy as np
     import torch
     from repro_torch.core import (ColoringSpec, Graph, ProcessMesh, color,
                                   compile_plan, pad_bucket, partition_graph,
                                   rmat, validate_coloring)
     from repro_torch.kernels import launch_counts, reset_launch_counts
-    from repro_torch.parallel import halo_bytes
     D = mesh.num_devices
     out = dict(rank=mesh.rank, route=mesh.route, device=str(mesh.device),
                backend=mesh.backend)
@@ -689,11 +712,8 @@ def dist_rank(mesh, graph_dir: str) -> dict:
     t = time.perf_counter()
     lay = partition_graph(g, D)
     out["partition_1d_s"] = time.perf_counter() - t
-    bound = g.max_degree() + 1
-    Bl, Vp = lay.boundary_local, lay.padded_vertices
-    out.update(Bl=Bl, El=lay.edges_local, Vp=Vp,
-               halo_bytes_per_round=halo_bytes(Bl, bound, D),
-               full_bytes_per_round=Vp * 2)
+    out.update(Bl=lay.boundary_local, El=lay.edges_local,
+               Vp=lay.padded_vertices)
     del lay
 
     main = dict(strategy="distributed", mesh=mesh, engine="fused_pallas")
@@ -709,31 +729,49 @@ def dist_rank(mesh, graph_dir: str) -> dict:
                          gathered=mesh.bytes_gathered)
         return rep
 
+    # the envelope of both seeds, the halo capacity read off seed 0
+    shape = dataclasses.replace(
+        compile_plan(ColoringSpec(**main), g).statics,
+        padded_edges=pad_bucket(max(x.num_directed_edges for x in graphs)),
+        max_degree=max(x.max_degree() for x in graphs))
+
+    def run_plan(tag, graph=g, plan=None, **kw):
+        """A plan request on the seeds' envelope, its gathered bytes and
+        the plan's closed-form cost table."""
+        plan = plan or compile_plan(ColoringSpec(**{**main, **kw}), shape)
+        torch.cuda.synchronize()
+        mesh.bytes_gathered = 0
+        t = time.perf_counter()
+        rep = plan(graph)
+        torch.cuda.synchronize()
+        runs[tag] = dict(_summary(rep), wall_s=time.perf_counter() - t,
+                         gathered=mesh.bytes_gathered, cost=plan.wire_cost())
+        return rep
+
     # ---- the main path and its variations, counted ----------------------
     reset_launch_counts()
     rep_main = run("main")
     run("ell_pallas", engine="ell_pallas")
     run("sort", engine="sort")
     run("wire=full", wire="full")
-    run("frontier=off", frontier="off")
-    run("wire=full frontier=off", wire="full", frontier="off")
-    run("frontier slab", frontier_capacity=DIST_SLAB_CAP)
+    run_plan("frontier=off", frontier="off")
+    run_plan("wire=full frontier=off", wire="full", frontier="off")
+    run_plan("frontier slab", frontier_capacity=DIST_SLAB_CAP)
     t = time.perf_counter()
     partition_graph(g, D, scheme="2d")
     out["partition_2d_s"] = time.perf_counter() - t
     rep_2d = run("partition=2d", partition="2d")
-    # the envelope of both seeds, the halo capacity read off seed 0
-    shape = dataclasses.replace(
-        compile_plan(ColoringSpec(**main), g).statics,
-        padded_edges=pad_bucket(max(x.num_directed_edges for x in graphs)),
-        max_degree=max(x.max_degree() for x in graphs))
-    plan = compile_plan(ColoringSpec(**main), shape)
+    # phase 10: the seeds' plan gated by the analyzer; every rank records
+    # its program, and the SPMD passes read all four recordings
+    t = time.perf_counter()
+    plan = compile_plan(ColoringSpec(**main), shape, verify="error")
+    out["verify_s"] = time.perf_counter() - t
+    out["verify_codes"] = dict(sorted(collections.Counter(
+        f.code for f in plan.findings).items()))
+    out["verify_spmd"] = sorted({f.format() for f in plan.findings
+                                 if f.code[:4] in ("COLL", "WIRE", "HALO")})
     for seed, graph in enumerate(graphs):
-        t = time.perf_counter()
-        prep = plan(graph)
-        torch.cuda.synchronize()
-        runs[f"plan seed {seed}"] = dict(_summary(prep),
-                                         wall_s=time.perf_counter() - t)
+        prep = run_plan(f"plan seed {seed}", graph, plan)
         if seed == 1 and mesh.rank == 0:
             out["valid_plan_seed1"] = bool(validate_coloring(graph,
                                                              prep.colors))
@@ -751,23 +789,15 @@ def dist_rank(mesh, graph_dir: str) -> dict:
     slab_rounds = sum(f > 0 for f in runs["frontier slab"]["frontier"])
     assert slab_rounds > 0, ("no round took the slab wire",
                              runs["frontier slab"])
-    # the bytes each wire gathered: the halo map once, each round's
-    # payload, the final colors
-    rounds = runs["frontier=off"]["rounds"]
-    want = D * Bl * 4 + rounds * out["halo_bytes_per_round"] + Vp * 4
-    assert runs["frontier=off"]["gathered"] == want, (runs["frontier=off"],
-                                                       want)
-    rounds = runs["wire=full frontier=off"]["rounds"]
-    want = rounds * out["full_bytes_per_round"] + Vp * 4
-    assert runs["wire=full frontier=off"]["gathered"] == want
-    # a slab round gathers one packed (gid, color) word per slab row
-    r = runs["frontier slab"]
-    cap_v = pad_bucket(min(DIST_SLAB_CAP, Vp // D), min_bucket=8)
-    want = (D * Bl * 4 + (r["rounds"] - slab_rounds)
-            * out["halo_bytes_per_round"] + slab_rounds * D * cap_v * 4
-            + Vp * 4)
-    assert r["gathered"] == want, (r, want)
-    out["slab_rounds"], out["slab_bytes_per_round"] = slab_rounds, D * cap_v * 4
+    # every plan request gathers what its plan.wire_cost() says: the setup
+    # tier once, the round tier in each round, the slab tier in each slab
+    # round, plus the final colors (Vp * 4 B, the program's output)
+    for tag, r in runs.items():
+        if "cost" in r:
+            want = wire_cost_bytes(r)
+            assert r["gathered"] == want, (tag, r["gathered"], want,
+                                           r["cost"])
+    out["slab_rounds"] = slab_rounds
     out["runs"] = runs
 
     # device-busy share of one more main request, profiled
@@ -839,11 +869,13 @@ def phase_distributed(root, graphs):
         f"{torch.cuda.get_device_name(0)}: {time.perf_counter() - t:.1f} s "
         f"for the launch (process start, graph load, every run)")
     r0 = ranks[0]
+    halo = r0["runs"]["frontier=off"]["cost"]["tiers"]["halo"]
+    full = r0["runs"]["wire=full frontier=off"]["cost"]["tiers"]["spill"]
     log(f"  graph V={graphs[0].num_vertices} "
         f"E={graphs[0].num_directed_edges}: Vp={r0['Vp']} El={r0['El']} "
-        f"Bl={r0['Bl']}; wire bytes per round: boundary halo "
-        f"{r0['halo_bytes_per_round']} vs full {r0['full_bytes_per_round']} "
-        f"({r0['full_bytes_per_round'] / max(1, r0['halo_bytes_per_round']):.2f}x)")
+        f"Bl={r0['Bl']}; wire bytes per round (plan.wire_cost()): boundary "
+        f"halo {halo['bytes_per_round']} vs full {full['bytes_per_round']} "
+        f"({full['bytes_per_round'] / max(1, halo['bytes_per_round']):.2f}x)")
     for r in ranks:
         m = r["runs"]["main"]
         busy = (f"device busy {r['busy_s']:.3f} s, "
@@ -868,12 +900,19 @@ def phase_distributed(root, graphs):
                 f"rank {r['rank']} disagrees with rank 0 on {tag}"
         assert r["plan_traces"] == 1, r["plan_traces"]
     assert r0["valid_1d"] and r0["valid_2d"] and r0["valid_plan_seed1"]
+    slab_cost = r0["runs"]["frontier slab"]["cost"]["tiers"]["slab"]
     log(f"  frontier slab of {DIST_SLAB_CAP} per rank: "
         f"{r0['slab_rounds']} round(s) on the slab wire, "
-        f"{r0['slab_bytes_per_round']} B per slab round")
+        f"{slab_cost['bytes_per_round']} B per slab round")
+    for tag, run in r0["runs"].items():
+        if "cost" in run:
+            log(f"  {tag}: gathered {run['gathered']} B == plan.wire_cost() "
+                f"{json.dumps(run['cost']['tiers'])} + final colors "
+                f"{run['cost']['verts_global'] * 4} B")
     log("  fused_pallas == ell_pallas == sort == wire=full == frontier=off "
         "== frontier slab == plan (bit-identical); 1d, 2d and plan seed 1 "
-        "valid; plan.traces 1; gathered bytes equal the closed forms")
+        "valid; plan.traces 1; every plan request's gathered bytes equal "
+        "its plan.wire_cost()")
     for tag, run in r0["small"].items():
         log(f"  RMAT-B scale {SCALE_DIST_CPU} {tag} ({run['route']} route):"
             f" wall {run['wall_s']:.3f} s rounds={run['rounds']} "
@@ -908,6 +947,156 @@ def phase_distributed(root, graphs):
     shutil.rmtree(root, ignore_errors=True)
     log(f"phase 9 launches (sum over ranks): {counts}")
     log("phase 9 distributed: ok")
+    return counts, ranks
+
+
+# --------------------------------------------------------------------------
+# phase 10: the static analyzer
+# --------------------------------------------------------------------------
+def phase_analysis(graphs, main_report, models, gb, dist_ranks):
+    """Phase 10: ``repro_torch.analysis`` on the card (see the docstring at
+    the top)."""
+    import collections
+    import torch
+    from repro_torch.analysis import (AnalysisError, compare, dedupe,
+                                      lint_tree, load_baseline,
+                                      sweep_distributed, sweep_registry)
+    from repro_torch.analysis.budgets import (check_spec_budgets,
+                                              default_smem_ceiling)
+    from repro_torch.core import ColoringSpec, PlanShape, compile_plan
+    from repro_torch.core import pad_bucket
+    from repro_torch.core.engine import num_color_words
+    from repro_torch.kernels import (KERNELS, launch_counts,
+                                     reset_launch_counts)
+    from repro_torch.kernels.firstfit import smem_estimate
+    from repro_torch.kernels.ops import kernel_attributes
+
+    def by_code(fs):
+        return dict(sorted(collections.Counter(f.code for f in fs).items()))
+
+    reset_launch_counts()
+
+    # ---- 1. the registry sweeps, on the card and on CPU tensors -----------
+    found = {}
+    for dev in ("cuda", "cpu"):
+        t = time.perf_counter()
+        fs = dedupe(sweep_registry(device=dev) + sweep_distributed(device=dev))
+        torch.cuda.synchronize()
+        found[dev] = fs
+        log(f"phase 10 registry + distributed sweep on {dev}: "
+            f"{time.perf_counter() - t:.2f} s, {len(fs)} findings "
+            f"{by_code(fs)}")
+    card = {(f.code, f.site, f.message) for f in found["cuda"]}
+    host = {(f.code, f.site, f.message) for f in found["cpu"]}
+    assert card == host, ("card and CPU findings differ",
+                          sorted(card ^ host)[:6])
+    new, allowed, stale = compare(dedupe(found["cuda"] + lint_tree()),
+                                  load_baseline())
+    assert not new, [f.format() for f in new]
+    assert not stale, stale
+    assert "ANALYSIS000" not in by_code(found["cuda"])
+    log(f"  card findings == CPU findings; against the baseline: 0 new, "
+        f"{len(allowed)} allowlisted, 0 stale; no ANALYSIS000")
+
+    # ---- 2. the main plan on the scale-22 seed-0 graph --------------------
+    spec = ColoringSpec(strategy="iterative", engine="fused_pallas",
+                        concurrency=CONCURRENCY)
+    t = time.perf_counter()
+    compile_plan(spec, graphs[0], device="cuda")
+    build_s = time.perf_counter() - t
+    t = time.perf_counter()
+    plan = compile_plan(spec, graphs[0], device="cuda", verify="error")
+    torch.cuda.synchronize()
+    total_s = time.perf_counter() - t
+    log(f"phase 10 main plan (RMAT-ER scale {SCALE_MAIN}, fused_pallas, "
+        f"concurrency {CONCURRENCY}) verify='error': passed; plan build "
+        f"{build_s:.3f} s, verify {total_s - build_s:.3f} s; findings "
+        f"{by_code(plan.findings)}")
+    rep = plan(graphs[0])
+    assert same_report(rep, main_report), "verified plan differs from phase 3"
+    log("  the verified plan serves seed 0: equal to phase 3")
+
+    # ---- 3. shared memory on the card -------------------------------------
+    optin = default_smem_ceiling("cuda")
+    sq = models["d2"][0]
+    d2_spec = ColoringSpec(strategy="iterative", model="d2",
+                           engine="fused_pallas", concurrency=CONCURRENCY)
+    d2_shape = PlanShape(num_vertices=sq.num_vertices,
+                         padded_edges=pad_bucket(sq.num_directed_edges),
+                         max_degree=sq.max_degree())
+    t = time.perf_counter()
+    d2_plan = compile_plan(d2_spec, d2_shape, device="cuda", verify="error")
+    torch.cuda.synchronize()
+    log(f"phase 10 d2 plan ({d2_shape}, W="
+        f"{num_color_words(d2_shape.max_degree + 1)}) verify='error': "
+        f"passed in {time.perf_counter() - t:.3f} s; findings "
+        f"{by_code(d2_plan.findings)}")
+    skew_shape = PlanShape(num_vertices=gb.num_vertices,
+                           padded_edges=pad_bucket(gb.num_directed_edges),
+                           max_degree=gb.max_degree())
+    skew_w = num_color_words(skew_shape.max_degree + 1)
+    skew = check_spec_budgets(ColoringSpec(engine="fused_pallas"), skew_shape,
+                              vmem_ceiling=optin)
+    assert not [f for f in skew if f.code == "VMEM001"], skew
+    log(f"  skew plan W={skew_w}: {smem_estimate(skew_w)} B of shared memory "
+        f"per block against the card's opt-in {optin} B "
+        f"(cudaDevAttrMaxSharedMemoryPerBlockOptin): fits")
+    big = ColoringSpec(engine="fused_pallas", color_bound=1_900_000)
+    big_shape = PlanShape(num_vertices=1024, padded_edges=4096,
+                          max_degree=2_000_000)
+    big_w = num_color_words(big.color_bound)
+    try:
+        compile_plan(big, big_shape, device="cuda", verify="error")
+    except AnalysisError as e:
+        assert "VMEM001" in str(e), str(e)
+        log(f"  a color_bound of {big.color_bound} (W={big_w}, "
+            f"{smem_estimate(big_w)} B per block > {optin} B): "
+            "verify='error' raises VMEM001")
+    else:
+        raise AssertionError("a bitset above the card's shared memory "
+                             "passed verify='error'")
+
+    # ---- 4. registers, as the budget pass reads them ----------------------
+    shapes = {"main": (num_color_words(graphs[0].max_degree() + 1),
+                       graphs[0].max_degree()),
+              "skew": (skew_w, gb.max_degree()),
+              "d2": (num_color_words(d2_shape.max_degree + 1),
+                     d2_shape.max_degree)}
+    for k in KERNELS:
+        for tag, (w, d) in shapes.items():
+            if k.name == "conflict_mask" and tag != "main":
+                continue
+            a = kernel_attributes(k.name, words=w, width=d)
+            assert a["registers"] > 0 and a["max_threads"] >= \
+                a["block_threads"] > 0, (k.name, tag, a)
+            slab = k.name != "conflict_mask"
+            log(f"phase 10 {k.name} [{tag}" + (f", W={w}" if slab else "")
+                + f"]: {a['registers']} registers, {a['local_bytes']} B "
+                f"local, {a['static_smem_bytes']} B static shared, block "
+                f"{a['block_threads']} of max {a['max_threads']} threads, "
+                f"dynamic shared {smem_estimate(w) if slab else 0} B of "
+                f"{a['optin_smem_bytes']} B")
+
+    # ---- 5. the distributed plan (phase 9's 4-rank launch) ----------------
+    r0 = dist_ranks[0]
+    for r in dist_ranks:
+        assert r["verify_spmd"] == r0["verify_spmd"], r["rank"]
+        log(f"phase 10 distributed rank {r['rank']}: compile_plan(verify="
+            f"'error') passed in {r['verify_s']:.3f} s; findings "
+            f"{r['verify_codes']}")
+    for line in r0["verify_spmd"]:
+        log(f"  {line[:300]}")
+    cost = r0["runs"]["plan seed 0"]["cost"]
+    log(f"  plan.wire_cost(): {json.dumps(cost)}")
+    for tag in ("plan seed 0", "plan seed 1"):
+        run = r0["runs"][tag]
+        log(f"  {tag}: gathered {run['gathered']} B == plan.wire_cost() "
+            f"over {run['rounds']} round(s) + final colors")
+    counts = launch_counts()
+    log(f"phase 10 launches (the card sweep, the verified plans): {counts}")
+    for name, n in counts.items():
+        assert n > 0, f"kernel {name} never launched in phase 10"
+    log("phase 10 analysis: ok")
     return counts
 
 
@@ -1061,11 +1250,13 @@ def main() -> int:
     counts_stream = phase_stream(graphs[0])
     counts_serve = phase_serve(os.path.join(
         os.path.dirname(os.path.abspath(__file__)), "build", "serve_ckpt"))
-    counts_dist = phase_distributed(os.path.join(
+    counts_dist, dist_ranks = phase_distributed(os.path.join(
         os.path.dirname(os.path.abspath(__file__)), "build", "dist"), graphs)
+    counts_analysis = phase_analysis(graphs, reports[0], models, gb,
+                                     dist_ranks)
     by_path = {"main": main_counts, "models": counts_models,
                "stream": counts_stream, "serve": counts_serve,
-               "distributed": counts_dist}
+               "distributed": counts_dist, "analysis": counts_analysis}
 
     # ---- phase 5: timings at the main path's shapes ---------------------
     dg, c, cpad, V, D, runs = real_slabs(graphs[0], reports[0].colors, words)

@@ -684,6 +684,9 @@ class ColoringPlan:
     reference's vmapped ``map`` returns them, wall time amortized over the
     batch); a batched program is later work (ROADMAP A16).
 
+    ``plan.findings`` holds the analyzer's findings when
+    ``compile_plan(verify=...)`` built the plan (None otherwise).
+
     ``plan.traces`` counts program builds. The program is built at the
     first call and pinned to the envelope: every served graph is laid out
     with the same shapes and static fields, so the count stays at 1 however
@@ -707,6 +710,8 @@ class ColoringPlan:
         self._degenerate = (self.statics.num_vertices == 0
                             or self.statics.padded_edges == 0)
         self._traces = 0
+        # what compile_plan(verify=...) found (None: not verified)
+        self.findings: Optional[list] = None
         self._program: Optional[Callable[[DeviceGraph], RawColoring]] = None
         self._executor: Optional[Callable] = None
         if self.strategy.wants == "host" and not self._degenerate:
@@ -771,14 +776,18 @@ class ColoringPlan:
         return dg, perm
 
     def wire_cost(self) -> Optional[dict]:
-        """The reference's closed-form bytes-on-wire table of a distributed
-        plan (``None`` for the other strategies). It is computed by the
-        reference's static analyzer, which is not ported yet."""
+        """The closed-form bytes-on-wire cost table for this plan's
+        envelope (distributed plans only; ``None`` otherwise): the same
+        per-tier accounting the SPMD verifier holds recorded runs against
+        (``repro_torch.analysis.wirecost``) —
+        ``{"tiers": {"halo": {...}, "setup": {...}, ...}, ...}`` keyed by
+        the plan's resolved wire, with the formula strings beside the
+        numbers. The final colors gather is the program's output and is
+        not priced."""
         if self.strategy.wants != "host":
             return None
-        raise NotImplementedError(
-            "ColoringPlan.wire_cost needs the static analyzer "
-            "(analysis/wirecost.py), not ported yet: ROADMAP A14")
+        from ..analysis.wirecost import wire_cost_table
+        return wire_cost_table(self.spec, self.statics)
 
     def __call__(self, g, **runtime) -> ColoringReport:
         """Color ``g`` through the plan's program. ``runtime`` kwargs are
@@ -830,7 +839,8 @@ def _spec_device(spec: ColoringSpec, device: DeviceSpec) -> DeviceSpec:
 
 
 def compile_plan(spec: ColoringSpec, graph_or_shape,
-                 device: DeviceSpec = None) -> ColoringPlan:
+                 device: DeviceSpec = None,
+                 verify: Optional[str] = None) -> ColoringPlan:
     """Build ``spec`` against a host graph (or an explicit
     :class:`PlanShape`) into a reusable :class:`ColoringPlan` on ``device``
     (``None`` = the card).
@@ -838,8 +848,27 @@ def compile_plan(spec: ColoringSpec, graph_or_shape,
     From a graph, the envelope is read off its *constraint* form (the
     square lowering under d2/pd2): the vertex count, the directed-edge
     count rounded up the :func:`pad_bucket` grid, and the max degree. Any
-    later graph inside the envelope is served by the same program."""
-    return ColoringPlan(spec, graph_or_shape, device)
+    later graph inside the envelope is served by the same program.
+
+    ``verify`` runs the :mod:`repro_torch.analysis` static analyzer over
+    the plan before returning it: ``"warn"`` emits a Python warning for
+    any finding the committed baseline does not cover, ``"error"`` raises
+    :class:`repro_torch.analysis.AnalysisError` instead (anything else
+    raises ``ValueError``). The analyzer records the plan's program on the
+    given graph (or on seeded graphs inside a ``PlanShape``), on the plan's
+    device; distributed plans also run the SPMD verifier over every rank's
+    recordings, so every rank of the mesh must compile together."""
+    if verify is not None and verify not in ("warn", "error"):
+        raise ValueError(f'verify must be None, "warn" or "error", '
+                         f'got {verify!r}')
+    plan = ColoringPlan(spec, graph_or_shape, device)
+    if verify is not None:
+        from ..analysis import verify_plan
+        plan.findings = verify_plan(
+            spec, plan.statics, mode=verify, device=plan.device,
+            graph=(None if isinstance(graph_or_shape, PlanShape)
+                   else graph_or_shape))
+    return plan
 
 
 # --------------------------------------------------------------------------

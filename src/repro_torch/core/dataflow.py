@@ -24,6 +24,7 @@ import functools
 import numpy as np
 import torch
 
+from ..kernels.ops import report_path, report_state
 from .engine import EngineSpec, SweepSpec, fixpoint_sweep
 from .frontier import compact_frontier, frontier_counts
 from .graph import DeviceGraph, DeviceSpec
@@ -108,11 +109,14 @@ def _dataflow_impl(g: DeviceGraph, *, max_sweeps: int, backend,
         active = _scatter_any(dslab.dst, dep_e, V)
         nv, ne = (int(x) for x in frontier_counts(active, g.inc_ptr))
         if nv <= cap_v and ne <= cap_e:
+            report_path("active sweep")
             return slab_sweep(cpad, active)
+        report_path("slab spill")
         return full_sweep(cpad)
 
     cpad = torch.zeros((V + 1,), dtype=torch.int32, device=dev)
     chg = torch.ones((V,), dtype=torch.bool, device=dev)
+    report_state(cpad, chg)
     n, still, nslab = 0, True, 0
     while still and n < max_sweeps:
         fits = False

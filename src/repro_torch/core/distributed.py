@@ -48,6 +48,8 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from ..kernels.ops import (collective_scope, report_loop_exit, report_path,
+                           report_round, report_state)
 from ..parallel.compression import halo_words, pack_halo, unpack_halo
 from .engine import (EngineSpec, SweepSpec, conflict_rows, edge_slots,
                      fixpoint_sweep, get_backend, lockstep_offsets)
@@ -125,7 +127,12 @@ class ProcessMesh:
 
     def all_gather_tiled(self, x: torch.Tensor) -> torch.Tensor:
         """Every rank's ``x`` concatenated along dim 0 in rank order
-        (``lax.all_gather(..., tiled=True)``)."""
+        (``lax.all_gather(..., tiled=True)``). A recorder sees the call
+        with or without a group (``kernels.ops.collective_scope``)."""
+        with collective_scope("all_gather", x, self.num_devices) as scope:
+            return scope.result(self._all_gather(x))
+
+    def _all_gather(self, x: torch.Tensor) -> torch.Tensor:
         if self.group is None:
             return x
         import torch.distributed as dist
@@ -141,6 +148,11 @@ class ProcessMesh:
         return out.view(x.dtype) if raw else out
 
     def _all_reduce(self, x: torch.Tensor, op) -> torch.Tensor:
+        with collective_scope("all_reduce", x, self.num_devices,
+                              str(op).rsplit(".", 1)[-1].lower()) as scope:
+            return scope.result(self._reduce(x, op))
+
+    def _reduce(self, x: torch.Tensor, op) -> torch.Tensor:
         if self.group is None:
             return x
         import torch.distributed as dist
@@ -434,11 +446,13 @@ def _bsp_local(mesh: ProcessMesh, lsrc: torch.Tensor, ldst: torch.Tensor,
     colors = torch.zeros((Vl,), **i32)
     pending = torch.ones((Vl,), dtype=torch.bool, device=dev)
     snap = torch.zeros((Vp,), **i32)   # snapshot: all uncolored
+    report_state(colors, pending, snap)
     conf_hist = np.zeros(max_rounds, np.int32)
     sweep_hist = np.zeros(max_rounds, np.int32)
     front_hist = np.zeros(max_rounds, np.int32)
     rnd, total = 0, 1
     while total > 0 and rnd < max_rounds:
+        report_round(rnd)
         # (1) last round's snapshot view. ALL nonzero colors forbid, stale
         # colors of re-pending vertices included (one exchange per round
         # serves phase 1 and the conflict pass)
@@ -466,12 +480,16 @@ def _bsp_local(mesh: ProcessMesh, lsrc: torch.Tensor, ldst: torch.Tensor,
                                         dst_pad=Vp)
         # (2) local sequential greedy as an offset-DAG fixpoint (no comms)
         if fits_solve:
+            report_path("frontier round")
             colors, n_sweeps = slab_solve(slab, colors, ppad, opad, snap_pad)
         else:
+            if use_frontier and rnd > 0:
+                report_path("slab spill")
             colors, n_sweeps = full_solve(colors, pending, ppad, opad,
                                           snap_pad)
         # (3) the wire
         if all_fit:
+            report_path("frontier-slab wire")
             snap, pend_glob = slab_wire(slab, colors, snap)
         else:
             snap, pend_glob = round_wire(colors, pending, ppad, snap)
@@ -496,6 +514,7 @@ def _bsp_local(mesh: ProcessMesh, lsrc: torch.Tensor, ldst: torch.Tensor,
             front_hist[rnd] = front
         pending = new_pending
         rnd += 1
+    report_loop_exit()
     return colors, rnd, conf_hist, sweep_hist, front_hist
 
 

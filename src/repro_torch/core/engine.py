@@ -46,6 +46,7 @@ import torch
 
 from ..kernels.conflict import conflict_mask
 from ..kernels.firstfit import firstfit
+from ..kernels.ops import report_state
 from ..kernels.ref import table_mex
 from ..kernels.round_fused import COLOR_MASK, FORBID_BIT, round_fused
 from .mex import segment_mex
@@ -400,6 +401,7 @@ def fixpoint_sweep(mex: MexFn, spec: SweepSpec, colors0: torch.Tensor,
     so contributions gather from it directly. Returns
     (colors, sweeps, still_changing)."""
     V = colors0.shape[0]
+    report_state(colors0, pending)
 
     def sweep(cpad):
         key_c = torch.where(spec.dyn, cpad[spec.dyn_idx], spec.static_c)

@@ -28,6 +28,7 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 
+from ..kernels.ops import report_state
 from .engine import SlabMexFn, conflict_pending
 from .graph import pad_bucket
 
@@ -191,6 +192,7 @@ def frontier_sweep(mex_slab: SlabMexFn, *, key_v: torch.Tensor,
     Returns ``(cpad, sweeps, still_changing)``.
     """
     n_pad = cpad0.shape[0]                       # V + 1
+    report_state(cpad0)
     wok = write_vert < n_pad - 1
     widx = torch.where(wok, write_vert, torch.full_like(write_vert, n_pad))
     old_idx = torch.clamp(widx, max=n_pad - 1)

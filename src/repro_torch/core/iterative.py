@@ -35,6 +35,7 @@ import functools
 import numpy as np
 import torch
 
+from ..kernels.ops import report_path, report_state
 from .engine import (EngineSpec, SweepSpec, fixpoint_sweep,
                      lockstep_offsets, speculation_conflicts)
 from .frontier import (compact_frontier, frontier_conflicts, frontier_counts,
@@ -133,6 +134,7 @@ def _iterative_impl(g: DeviceGraph, colors0=None, pending0=None, *,
     pending = (torch.ones((V,), dtype=torch.bool, device=dev)
                if pending0 is None else
                torch.as_tensor(pending0).to(dev, torch.bool, copy=True))
+    report_state(colors, pending)
     conf_hist = np.zeros(max_rounds, np.int32)
     sweep_hist = np.zeros(max_rounds, np.int32)
     front_hist = np.zeros(max_rounds, np.int32)
@@ -148,10 +150,13 @@ def _iterative_impl(g: DeviceGraph, colors0=None, pending0=None, *,
             nv, ne = (int(x) for x in frontier_counts(pending, g.inc_ptr))
             fits = nv <= frontier_cap_v and ne <= frontier_cap_e
         if fits:
+            report_path("frontier round")
             colors, n_sweeps, pending = frontier_round(colors, pending,
                                                        ppad, opad)
             front_hist[rnd] = nv
         else:
+            if use_frontier and (rnd > 0 or seed_frontier):
+                report_path("slab spill")
             colors, n_sweeps, pending = full_round(colors, pending,
                                                    ppad, opad)
         left = int(pending.sum())

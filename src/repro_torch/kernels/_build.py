@@ -38,6 +38,7 @@ _SIGNATURES = {
     "repro_firstfit": ((_P, _L, _I, _I, _I, _P, _P), _I),
     "repro_round_fused": ((_P, _L, _P, _I, _I, _I, _P, _P, _P), _I),
     "repro_conflict_mask": ((_P, _P, _P, _P, _L, _P, _P), _I),
+    "repro_kernel_attributes": ((_I, _I, _I, _P), _I),
     "repro_error_string": ((_I,), ctypes.c_char_p),
 }
 

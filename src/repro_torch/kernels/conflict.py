@@ -38,22 +38,26 @@ def conflict_mask(colors_src: torch.Tensor, colors_dst: torch.Tensor,
                              f"got {a.dtype} {tuple(a.shape)}")
         if a.device != colors_src.device:
             raise ValueError("conflict_mask: operands on different devices")
-    if colors_src.device.type == "cpu":
-        return conflict_mask_plain(*args)
-    if colors_src.device.type != "cuda":
-        raise ValueError(f"conflict_mask: unsupported device {colors_src.device}")
-    args = tuple(a.contiguous() for a in args)
-    out = torch.empty((E,), dtype=torch.int32, device=colors_src.device)
-    if E == 0:
-        return out
-    lib = _build.load()
-    with torch.cuda.device(colors_src.device):
-        stream = torch.cuda.current_stream(colors_src.device).cuda_stream
-        rc = lib.repro_conflict_mask(*(a.data_ptr() for a in args), E,
-                                     out.data_ptr(), stream)
-    _build.check(lib, rc, "conflict_mask")
-    conflict_mask.launches += 1
-    return out
+    from . import ops
+    with ops.kernel_scope("conflict_mask", args, rows=E, width=1, words=0,
+                          smem=0) as scope:
+        if colors_src.device.type == "cpu":
+            return scope.result(conflict_mask_plain(*args))
+        if colors_src.device.type != "cuda":
+            raise ValueError(f"conflict_mask: unsupported device "
+                             f"{colors_src.device}")
+        args = tuple(a.contiguous() for a in args)
+        out = torch.empty((E,), dtype=torch.int32, device=colors_src.device)
+        if E == 0:
+            return scope.result(out)
+        lib = _build.load()
+        with torch.cuda.device(colors_src.device):
+            stream = torch.cuda.current_stream(colors_src.device).cuda_stream
+            rc = lib.repro_conflict_mask(*(a.data_ptr() for a in args), E,
+                                         out.data_ptr(), stream)
+        _build.check(lib, rc, "conflict_mask")
+        conflict_mask.launches += 1
+        return scope.result(out)
 
 
 conflict_mask.launches = 0

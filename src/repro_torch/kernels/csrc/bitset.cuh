@@ -507,4 +507,26 @@ cudaError_t launch_slab_rows(SlabArgs a, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
+// The attributes of the variant launch_slab_rows picks for W words and
+// rows of D (the bulk-copy one), and the block size it asks for.
+template <bool kFused>
+cudaError_t slab_attributes(int W, int D, cudaFuncAttributes* attr, int* threads) {
+  if (W <= 0 || D <= 0) return cudaErrorInvalidValue;
+  const bool narrow = W <= kNarrowMaxWords;
+  const int lanes = (narrow && D <= 64) ? 4 : kWarp;
+  *threads = kThreads;
+  if (!narrow) {
+    int dev = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err != cudaSuccess) return err;
+    DeviceInfo info;
+    err = device_info(dev, &info);
+    if (err != cudaSuccess) return err;
+    long long warps = (info.max_smem - kBarrierBytes - 1024) / (4LL * W);
+    if (warps > kThreads / kWarp) warps = kThreads / kWarp;
+    *threads = warps < 1 ? 0 : static_cast<int>(warps) * kWarp;
+  }
+  return cudaFuncGetAttributes(attr, pick_kernel<kFused>(W, lanes, true));
+}
+
 }  // namespace repro_torch

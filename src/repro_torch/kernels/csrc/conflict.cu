@@ -25,13 +25,20 @@ __global__ void conflict_kernel(const int* __restrict__ csrc, const int* __restr
   }
 }
 
+constexpr int kConflictThreads = 256;
+
+cudaError_t conflict_attributes(cudaFuncAttributes* attr, int* threads) {
+  *threads = kConflictThreads;
+  return cudaFuncGetAttributes(attr, reinterpret_cast<const void*>(conflict_kernel));
+}
+
 }  // namespace repro_torch
 
 extern "C" int repro_conflict_mask(const void* csrc, const void* cdst, const void* src,
                                    const void* dst, long long E, void* out, void* stream) {
   using namespace repro_torch;
   if (E <= 0) return static_cast<int>(cudaSuccess);
-  constexpr int kThreads = 256;
+  constexpr int kThreads = kConflictThreads;
   long long blocks = (E + kThreads - 1) / kThreads;
   if (blocks > (1LL << 20)) blocks = 1LL << 20;
   conflict_kernel<<<static_cast<unsigned int>(blocks), kThreads, 0,

@@ -38,6 +38,12 @@
 // a block's shared memory (the wrapper checks it).
 #include "bitset.cuh"
 
+namespace repro_torch {
+cudaError_t firstfit_attributes(int W, int D, cudaFuncAttributes* attr, int* threads) {
+  return slab_attributes<false>(W, D, attr, threads);
+}
+}  // namespace repro_torch
+
 extern "C" int repro_firstfit(const void* nbr, long long stride, int V, int D, int W,
                               void* out, void* stream) {
   using namespace repro_torch;

@@ -25,6 +25,12 @@
 // base 16-byte aligned (else the plain path reads them from global memory).
 #include "bitset.cuh"
 
+namespace repro_torch {
+cudaError_t round_fused_attributes(int W, int D, cudaFuncAttributes* attr, int* threads) {
+  return slab_attributes<true>(W, D, attr, threads);
+}
+}  // namespace repro_torch
+
 extern "C" int repro_round_fused(const void* ent, long long stride, const void* own, int V,
                                  int D, int W, void* mex, void* conflict, void* stream) {
   using namespace repro_torch;

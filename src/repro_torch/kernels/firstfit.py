@@ -15,6 +15,9 @@ colors ``< 0`` or ``>= 32·W`` dropped) and returns the lowest clear bit.
   is no fallback between the two.
 * :func:`firstfit_plain` — the same function in plain PyTorch.
 * ``firstfit.launches`` — how many times the wrapper launched the kernel.
+* :func:`smem_estimate` — the least shared memory a block of the kernel
+  needs at ``W`` words; :func:`check_slab` and the static analyzer's
+  budget pass (``repro_torch.analysis.budgets``) both read it.
 """
 from __future__ import annotations
 
@@ -27,6 +30,16 @@ from .ref import table_mex
 # the kernels keep 1,152 of them for their barriers and result stash
 SMEM_LIMIT_BYTES = 232_448
 SMEM_RESERVED_BYTES = 1_152
+
+
+def smem_estimate(words: int) -> int:
+    """The least dynamic shared memory, in bytes, a block of the slab
+    kernels needs at ``words`` bitset words: the barriers and result stash
+    plus one warp's ``W``-word bitset (the wide path's floor; the launcher
+    fits its staging ring into whatever is left, and the narrow path's
+    bitsets live in registers). A block launches iff this fits the card's
+    opt-in limit."""
+    return SMEM_RESERVED_BYTES + 4 * int(words)
 
 
 def firstfit_plain(nbr_colors: torch.Tensor, *, words: int) -> torch.Tensor:
@@ -50,11 +63,11 @@ def check_slab(slab: torch.Tensor, words: int, name: str) -> None:
                          f"stride >= {D}; got strides {slab.stride()}")
     if int(words) < 1:
         raise ValueError(f"{name}: words must be >= 1")
-    if 4 * int(words) > SMEM_LIMIT_BYTES - SMEM_RESERVED_BYTES:
-        raise ValueError(f"{name}: a {words}-word bitset needs {4 * words} "
-                         f"bytes of shared memory per row, above the "
-                         f"{SMEM_LIMIT_BYTES - SMEM_RESERVED_BYTES} a block "
-                         f"has for it")
+    if smem_estimate(words) > SMEM_LIMIT_BYTES:
+        raise ValueError(f"{name}: a {words}-word bitset needs "
+                         f"{smem_estimate(words)} bytes of shared memory per "
+                         f"block, above the {SMEM_LIMIT_BYTES} a block may "
+                         f"have")
 
 
 def row_stride(slab: torch.Tensor) -> int:
@@ -70,23 +83,29 @@ def firstfit(nbr_colors: torch.Tensor, *, words: int = 16) -> torch.Tensor:
     column). Returns mex [V] int32 >= 1, ``INT32_MAX`` for a row whose
     ``32·words`` colors are all taken.
     """
+    from . import ops
     check_slab(nbr_colors, words, "firstfit")
-    if nbr_colors.device.type == "cpu":
-        return firstfit_plain(nbr_colors, words=words)
-    if nbr_colors.device.type != "cuda":
-        raise ValueError(f"firstfit: unsupported device {nbr_colors.device}")
     V, D = nbr_colors.shape
-    out = torch.empty((V,), dtype=torch.int32, device=nbr_colors.device)
-    if V == 0:
-        return out
-    lib = _build.load()
-    with torch.cuda.device(nbr_colors.device):
-        stream = torch.cuda.current_stream(nbr_colors.device).cuda_stream
-        rc = lib.repro_firstfit(nbr_colors.data_ptr(), row_stride(nbr_colors),
-                                V, D, int(words), out.data_ptr(), stream)
-    _build.check(lib, rc, "firstfit")
-    firstfit.launches += 1
-    return out
+    with ops.kernel_scope("firstfit", (nbr_colors,), rows=V, width=D,
+                          words=int(words),
+                          smem=smem_estimate(words)) as scope:
+        if nbr_colors.device.type == "cpu":
+            return scope.result(firstfit_plain(nbr_colors, words=words))
+        if nbr_colors.device.type != "cuda":
+            raise ValueError(f"firstfit: unsupported device "
+                             f"{nbr_colors.device}")
+        out = torch.empty((V,), dtype=torch.int32, device=nbr_colors.device)
+        if V == 0:
+            return scope.result(out)
+        lib = _build.load()
+        with torch.cuda.device(nbr_colors.device):
+            stream = torch.cuda.current_stream(nbr_colors.device).cuda_stream
+            rc = lib.repro_firstfit(nbr_colors.data_ptr(),
+                                    row_stride(nbr_colors), V, D, int(words),
+                                    out.data_ptr(), stream)
+        _build.check(lib, rc, "firstfit")
+        firstfit.launches += 1
+        return scope.result(out)
 
 
 firstfit.launches = 0

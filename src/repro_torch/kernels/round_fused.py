@@ -17,6 +17,8 @@ Entries with neither bit are inert; color 0 is always forbidden.
   the two.
 * :func:`round_fused_plain` — the same function in plain PyTorch.
 * ``round_fused.launches`` — how many times the wrapper launched the kernel.
+* :func:`smem_estimate` — ``firstfit``'s: both kernels share one launcher
+  (``csrc/bitset.cuh``), so their per-block shared memory is the same.
 """
 from __future__ import annotations
 
@@ -25,7 +27,7 @@ from typing import Tuple
 import torch
 
 from . import _build
-from .firstfit import check_slab, row_stride
+from .firstfit import check_slab, row_stride, smem_estimate
 from .ref import table_mex
 
 # packed-entry layout: bits 0..27 color, bit 28 forbid, bit 29 conflict
@@ -85,24 +87,31 @@ def round_fused(entries: torch.Tensor, own_colors: torch.Tensor, *,
     if own_colors.device != entries.device:
         raise ValueError("round_fused: entries and own_colors on different "
                          "devices")
-    if entries.device.type == "cpu":
-        return round_fused_plain(entries, own_colors, words=words)
-    if entries.device.type != "cuda":
-        raise ValueError(f"round_fused: unsupported device {entries.device}")
-    own = own_colors.contiguous()
-    mex = torch.empty((V,), dtype=torch.int32, device=entries.device)
-    conf = torch.empty((V,), dtype=torch.int32, device=entries.device)
-    if V == 0:
-        return mex, conf
-    lib = _build.load()
-    with torch.cuda.device(entries.device):
-        stream = torch.cuda.current_stream(entries.device).cuda_stream
-        rc = lib.repro_round_fused(entries.data_ptr(), row_stride(entries),
-                                   own.data_ptr(), V, D, int(words),
-                                   mex.data_ptr(), conf.data_ptr(), stream)
-    _build.check(lib, rc, "round_fused")
-    round_fused.launches += 1
-    return mex, conf
+    from . import ops
+    with ops.kernel_scope("round_fused", (entries, own_colors), rows=V,
+                          width=D, words=int(words),
+                          smem=smem_estimate(words)) as scope:
+        if entries.device.type == "cpu":
+            return scope.result(round_fused_plain(entries, own_colors,
+                                                  words=words))
+        if entries.device.type != "cuda":
+            raise ValueError(f"round_fused: unsupported device "
+                             f"{entries.device}")
+        own = own_colors.contiguous()
+        mex = torch.empty((V,), dtype=torch.int32, device=entries.device)
+        conf = torch.empty((V,), dtype=torch.int32, device=entries.device)
+        if V == 0:
+            return scope.result((mex, conf))
+        lib = _build.load()
+        with torch.cuda.device(entries.device):
+            stream = torch.cuda.current_stream(entries.device).cuda_stream
+            rc = lib.repro_round_fused(entries.data_ptr(),
+                                       row_stride(entries), own.data_ptr(),
+                                       V, D, int(words), mex.data_ptr(),
+                                       conf.data_ptr(), stream)
+        _build.check(lib, rc, "round_fused")
+        round_fused.launches += 1
+        return scope.result((mex, conf))
 
 
 round_fused.launches = 0

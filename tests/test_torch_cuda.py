@@ -215,3 +215,31 @@ def test_distributed_two_ranks_on_card_equal_cpu(card, tmp_path):
         for name in ("firstfit", "round_fused", "conflict_mask"):
             assert a["launches"][name] > 0, name
             assert b["launches"][name] == 0, name
+
+
+# --------------------------------------------------------------------------
+# the static analyzer on the card
+# --------------------------------------------------------------------------
+@pytest.mark.parametrize("strategy", ["iterative", "dataflow", "recolor",
+                                      "distributed"])
+@pytest.mark.parametrize("engine", ["sort", "ell_pallas", "fused_pallas"])
+def test_verify_on_card_gives_the_cpu_findings(strategy, engine, card):
+    from repro_torch.analysis import verify_plan
+    spec = T.ColoringSpec(strategy=strategy, engine=engine)
+    shape = T.PlanShape(num_vertices=48, padded_edges=512, max_degree=8)
+
+    def found(device):
+        return sorted((f.code, f.site, f.message) for f in
+                      verify_plan(spec, shape, mode="error", device=device))
+    assert found("cuda") == found("cpu")
+
+
+@pytest.mark.parametrize("words,width", [(2, 39), (9, 300), (63, 1999)])
+def test_kernel_attributes_report_registers(words, width, card):
+    from repro_torch.kernels import KERNELS
+    from repro_torch.kernels.ops import kernel_attributes
+    for k in KERNELS:
+        a = kernel_attributes(k.name, words=words, width=width)
+        assert a["registers"] > 0, (k.name, a)
+        assert 0 < a["block_threads"] <= a["max_threads"], (k.name, a)
+        assert a["optin_smem_bytes"] > 0

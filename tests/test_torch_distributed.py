@@ -456,10 +456,13 @@ def test_run_ranks_runs_on_the_card_by_default(monkeypatch, tmp_path):
 
 
 def test_wire_cost_waits_for_the_analyzer():
+    # the analyzer is ported: a distributed plan prices its wire with the
+    # closed forms of repro_torch.analysis.wirecost, the others have none
     g = T.rmat.paper_graph("RMAT-ER", 6, seed=0)
     plan = T.compile_plan(T.ColoringSpec(strategy="distributed"), g,
                           device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP A14"):
-        plan.wire_cost()
+    from repro_torch.analysis.wirecost import wire_cost_table
+    assert plan.wire_cost() == wire_cost_table(plan.spec, plan.statics)
+    assert set(plan.wire_cost()["tiers"]) == {"halo", "setup", "slab"}
     assert T.compile_plan(T.ColoringSpec(), g,
                           device="cpu").wire_cost() is None
