@@ -5,7 +5,7 @@ is right on an NVIDIA card. Run from the repository root:
     python3 chip_smoke.py
 
 Phases, each printing its own lines; any failure raises and exits non-zero.
-They run in the order 1-4, 6-10, 5: the timings come last, on the slabs the
+They run in the order 1-4, 6-11, 5: the timings come last, on the slabs the
 other phases colored.
 
 1. build    — compile the CUDA kernels from ``src/repro_torch/kernels/csrc``
@@ -70,7 +70,21 @@ other phases colored.
               SPMD passes over all four ranks' recordings); the skew plan's
               shared memory fits the card's opt-in limit, and a color bound
               whose bitset does not raises VMEM001; registers and local
-              bytes per kernel from ``cudaFuncGetAttributes``.
+              bytes per kernel from ``cudaFuncGetAttributes``;
+11. lm      — the LM serving lane: ``python -m repro_torch.launch.serve``'s
+              ``main`` serves the full qwen3-4b config (36 layers, d_model
+              2560, 4.41 B params; batch 8, prompt 64, 32 new tokens:
+              prefill and decode tok/s, step p50/p99, peak memory), then
+              checks that decoding leaks nothing across batch rows; every
+              arch (qwen3-4b on the served weights; the others full size,
+              or full width with the depth cut to one pattern group)
+              prefills and decodes two tokens, each held against the full
+              forward under the reference's bar (grok-1-314b's error is
+              printed, not asserted: its decode drifts in the reference
+              too; whisper-medium is held with one key chunk over its 1500
+              frames, and its error as configured, where the full forward
+              attends to zero-padded keys as the reference's does, is
+              printed). The lane launches none of the three kernels.
 
 Ends with a ``{"kernels": [...]}`` line, the card's name and power limit,
 and the result line ``{"ok": true, "device": {...}}``. Imports no JAX and
@@ -106,6 +120,25 @@ DIST_RANKS = 4              # phase 9: gloo ranks sharing the card
 SCALE_DIST_CPU = 16         # phase 9: RMAT-B, the card against the CPU
 DIST_TIMEOUT_S = 420        # a rank that fails or outlives this fails
 DIST_SLAB_CAP = 196608      # phase 9: a vertex slab the last round fits
+LM_SERVE = ["--arch", "qwen3-4b", "--batch", "8", "--prompt-len", "64",
+            "--gen", "32"]  # phase 11: the full qwen3-4b config
+LM_FULL = ("starcoder2-3b", "gemma2-2b", "mamba2-130m", "whisper-medium",
+           "recurrentgemma-2b")
+# phase 11: full width, depth cut to one pattern group (deepseek keeps its
+# dense prefix layer): num_layers
+LM_CUT = {"mistral-nemo-12b": 1, "llama-3.2-vision-11b": 5,
+          "deepseek-v2-lite-16b": 2, "grok-1-314b": 1}
+# decode vs the full forward misses the bar in the reference too, and the
+# port reproduces the reference: reported, not asserted
+LM_REPORTED = {
+    "grok-1-314b": "its MoE decode drifts from the full forward in the "
+                   "reference (tests/test_decode.py xfails it)",
+}
+# at 1500 frames the full forward's non-causal attention pads the keys to
+# two 1024-key chunks and attends to the zero pad, which decode's
+# cache_attention does not (as in the reference, ROADMAP C9): whisper is
+# held with one key chunk over all its keys, its error as configured printed
+LM_ONE_KV_CHUNK = ("whisper-medium",)
 
 
 def log(*args):
@@ -1100,6 +1133,218 @@ def phase_analysis(graphs, main_report, models, gb, dist_ranks):
     return counts
 
 
+# --------------------------------------------------------------------------
+# phase 11: the LM serving lane
+# --------------------------------------------------------------------------
+def _lm_batch(cfg, b, t, seed=0):
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(seed)
+    out = {"tokens": rng.integers(0, cfg.vocab_size, (b, t)).astype(np.int32)}
+    if cfg.family == "vlm":
+        out["image_embeds"] = rng.normal(size=(
+            b, cfg.vlm.num_image_tokens, cfg.d_model)).astype(np.float32)
+    if cfg.family == "encdec":
+        out["frames"] = rng.normal(size=(
+            b, cfg.encdec.enc_seq, cfg.d_model)).astype(np.float32)
+    return {k: torch.from_numpy(v).cuda() for k, v in out.items()}
+
+
+def _free_card():
+    import gc
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+class _one_kv_chunk:
+    """Within the block, ``flash_attention`` takes all keys in one chunk,
+    so no zero-padded key exists."""
+
+    def __enter__(self):
+        from repro_torch.models import layers
+        self.real = real = layers.flash_attention
+
+        def one_chunk(q, k, v, **kw):
+            kw["kv_chunk"] = max(k.shape[1], kw.get("kv_chunk", 1024))
+            return real(q, k, v, **kw)
+        layers.flash_attention = one_chunk
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import layers
+        layers.flash_attention = self.real
+
+
+def _decode_vs_full(cfg, params):
+    """Prefill 16 tokens in 2 rows, then 2 decode steps, each against the
+    full forward: [(max abs err, max|full|)] per step."""
+    import numpy as np
+    import torch
+    from repro_torch import models
+    batch = _lm_batch(cfg, 2, 16)
+    rng = np.random.default_rng(0)
+    errs = []
+    with torch.inference_mode():
+        caches = models.init_cache(cfg, 2, 32, device="cuda")
+        _, _, caches = models.forward(cfg, params, batch, caches=caches)
+        assert caches["cur_len"].tolist() == [16, 16]
+        toks = batch["tokens"]
+        for _ in range(2):
+            nt = torch.from_numpy(rng.integers(
+                0, cfg.vocab_size, (2,)).astype(np.int32)).cuda()
+            logits, caches = models.decode_step(cfg, params, caches, nt)
+            toks = torch.cat([toks, nt[:, None]], dim=1)
+            full = models.forward(cfg, params, dict(batch, tokens=toks))[0]
+            assert torch.isfinite(logits).all() and \
+                logits.shape == (2, cfg.vocab_size)
+            errs.append((float((logits.float() - full[:, -1].float())
+                               .abs().max()),
+                         float(full[:, -1].float().abs().max())))
+    torch.cuda.synchronize()
+    return errs
+
+
+def _errs_text(errs) -> str:
+    return ", ".join(f"({e:.4g}, {r:.4g})" for e, r in errs)
+
+
+def _held(errs) -> bool:
+    return all(e < 0.05 * max(r, 10.0) for e, r in errs)
+
+
+def phase_lm():
+    """Phase 11 (see the docstring at the top). Returns the kernel launches
+    of the phase (the lane has no kernel of its own)."""
+    import numpy as np
+    import torch
+    from repro_torch import models
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch import serve as lm_serve
+
+    _free_card()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    # ---- the serving command at the full qwen3-4b config -----------------
+    res = lm_serve.main(LM_SERVE)
+    cfg = get_config("qwen3-4b")
+    toks = res["tokens"]
+    assert toks.shape == (8, 32) and toks.min() >= 0 \
+        and toks.max() < cfg.vocab_size, toks.shape
+    log(f"phase 11 serve qwen3-4b (full: {cfg.num_layers} layers, d_model "
+        f"{cfg.d_model}, {cfg.param_count():,} params, fp32 weights, bf16 "
+        f"compute; batch 8, prompt 64, gen 32): prefill "
+        f"{res['prefill_s']:.4f} s ({res['prefill_tok_s']:.1f} tok/s), "
+        f"decode {res['decode_s']:.4f} s ({res['decode_tok_s']:.2f} tok/s), "
+        f"step p50 {res['step_p50_ms']:.3f} ms p99 {res['step_p99_ms']:.3f} "
+        f"ms max {res['step_max_ms']:.3f} ms, max_memory_allocated "
+        f"{res['peak_bytes']:,} B ({res['peak_bytes'] / 2**30:.2f} GiB)")
+    del res
+    _free_card()
+
+    # ---- decode leaks nothing across batch rows (qwen3-4b, full) ---------
+    gen = torch.Generator("cuda").manual_seed(0)
+    params, _ = models.init_params(cfg, gen, device="cuda")
+    batch = _lm_batch(cfg, 2, 8, seed=1)
+    nt = torch.from_numpy(np.random.default_rng(2).integers(
+        0, cfg.vocab_size, (2,)).astype(np.int32)).cuda()
+    with torch.inference_mode():
+        out = []
+        for order in ((0, 1), (1, 0)):
+            rows = list(order)
+            caches = models.init_cache(cfg, 2, 16, device="cuda")
+            _, _, caches = models.forward(
+                cfg, params, {"tokens": batch["tokens"][rows]}, caches=caches)
+            out.append(models.decode_step(cfg, params, caches, nt[rows])[0])
+        iso = float((out[0].float() - out[1].flip(0).float()).abs().max())
+    log(f"phase 11 qwen3-4b decode batch isolation: rows swapped, max abs "
+        f"logit difference {iso:.3g}")
+    assert iso <= 2e-2, f"decode leaks across batch rows: {iso}"
+
+    # ---- prefill + 2 decode steps vs the full forward (qwen3-4b, full) ---
+    errs = _decode_vs_full(cfg, params)
+    log(f"phase 11 qwen3-4b (full size): prefill + 2 decode steps vs full "
+        f"forward: (max abs err, max|ref|) {_errs_text(errs)}; bar "
+        f"0.05*max(max|ref|, 10): " + ("held" if _held(errs) else "MISSED"))
+    assert _held(errs), ("qwen3-4b", errs)
+
+    # ---- where a decode step's time goes (batch 8, after a 64-token prefill)
+    batch = _lm_batch(cfg, 8, 64)
+    with torch.inference_mode():
+        caches = models.init_cache(cfg, 8, 96, device="cuda")
+        _, _, caches = models.forward(cfg, params, batch, caches=caches)
+        tok = batch["tokens"][:, -1]
+        state = {"caches": caches}
+
+        def steps(n):
+            for _ in range(n):
+                logits, state["caches"] = models.decode_step(
+                    cfg, params, state["caches"], tok)
+            torch.cuda.synchronize()
+        steps(1)
+        t = time.perf_counter()
+        steps(8)
+        wall = (time.perf_counter() - t) / 8
+        busy, rows = device_busy(lambda: steps(4))
+    per_step = busy / 4 if busy is not None else None
+    log(f"phase 11 qwen3-4b decode step (batch 8, warm): host wall "
+        f"{1e3 * wall:.3f} ms; device busy "
+        + ("not measured (the profiler reported no device time)"
+           if per_step is None else
+           f"{1e3 * per_step:.3f} ms ({100 * (1 - per_step / wall):.1f} % "
+           f"idle)") + f" (profiled over 4 steps)")
+    for name, calls, ms in rows[:8]:
+        log(f"  device time: {ms / 4:9.3f} ms/step in {calls // 4:5d} "
+            f"calls/step of {name[:70]}")
+    del params, caches, out, state
+    _free_card()
+
+    # ---- every other arch: prefill + 2 decode steps vs the full forward ---
+    import dataclasses
+    for arch in LM_FULL + tuple(LM_CUT):
+        t = time.perf_counter()
+        cfg = get_config(arch)
+        if arch in LM_CUT:
+            cfg = dataclasses.replace(cfg, num_layers=LM_CUT[arch])
+        if cfg.moe is not None:
+            # capacity dropping is batch-context dependent, so the check
+            # takes a capacity no expert can overflow: cf = E/k gives
+            # T + 1 slots per row (the reference's test uses 8, which
+            # still drops at deepseek's 64 experts, top 6)
+            cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+                cfg.moe, capacity_factor=cfg.moe.num_experts / cfg.moe.top_k))
+        params, _ = models.init_params(
+            cfg, torch.Generator("cuda").manual_seed(0), device="cuda")
+        errs = _decode_vs_full(cfg, params)
+        cut = (f"depth cut to {cfg.num_layers} of {get_config(arch).num_layers}"
+               if arch in LM_CUT else "full size")
+        note = ""
+        if arch in LM_ONE_KV_CHUNK:
+            note = (f"; as configured, where the full forward attends to "
+                    f"zero-padded keys (ROADMAP C9, reported): "
+                    f"{_errs_text(errs)}")
+            with _one_kv_chunk():
+                errs = _decode_vs_full(cfg, params)
+            cut += ", one key chunk over all keys"
+        ok = _held(errs)
+        log(f"phase 11 {arch} ({cut}, {cfg.param_count():,} params): prefill "
+            f"+ 2 decode steps vs full forward: (max abs err, max|ref|) "
+            + _errs_text(errs)
+            + f"; bar 0.05*max(max|ref|, 10): "
+            + ("held" if ok else "MISSED")
+            + ("" if arch not in LM_REPORTED else
+               f" (reported, not asserted: {LM_REPORTED[arch]})")
+            + note + f"; {time.perf_counter() - t:.1f} s")
+        assert ok or arch in LM_REPORTED, (arch, errs)
+        del params
+        _free_card()
+    counts = launch_counts()
+    log(f"phase 11 launches: {counts} (the LM lane has no kernel of its own)")
+    log(f"phase 11 lm: ok ({time.perf_counter() - t0:.1f} s)")
+    return counts
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1254,9 +1499,11 @@ def main() -> int:
         os.path.dirname(os.path.abspath(__file__)), "build", "dist"), graphs)
     counts_analysis = phase_analysis(graphs, reports[0], models, gb,
                                      dist_ranks)
+    counts_lm = phase_lm()
     by_path = {"main": main_counts, "models": counts_models,
                "stream": counts_stream, "serve": counts_serve,
-               "distributed": counts_dist, "analysis": counts_analysis}
+               "distributed": counts_dist, "analysis": counts_analysis,
+               "lm": counts_lm}
 
     # ---- phase 5: timings at the main path's shapes ---------------------
     dg, c, cpad, V, D, runs = real_slabs(graphs[0], reports[0].colors, words)

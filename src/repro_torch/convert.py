@@ -3,8 +3,11 @@
 The coloring system has no weights: its state is the graph. These functions
 rebuild the port's containers from the numpy arrays of the reference's
 (``repro.core.graph``) containers, so both packages can color the identical
-device layout. They take plain arrays, never reference objects: the port
-does not import the reference.
+device layout. The LM lane's state is its weights:
+:func:`lm_params_from_arrays` builds the port's params module from the
+reference's ``init_params`` tree, and :func:`lm_params_to_arrays` goes
+back. They take plain arrays, never reference objects: the port does not
+import the reference.
 """
 from __future__ import annotations
 
@@ -15,6 +18,7 @@ import torch
 
 from .core.graph import (BipartiteGraph, DeviceGraph, DeviceSpec, Graph,
                          resolve_device)
+from .models.params import reference_leaves, reference_shape
 
 _ARRAY_FIELDS = ("src", "dst", "row_ptr", "col_idx", "ell_slot", "inc_ptr")
 _STATIC_FIELDS = ("num_vertices", "num_directed_edges", "max_degree",
@@ -54,3 +58,57 @@ def bipartite_from_arrays(num_left: int, num_right: int, l2r_ptr, l2r_idx,
                           np.asarray(l2r_idx, np.int32),
                           np.asarray(r2l_ptr, np.int64),
                           np.asarray(r2l_idx, np.int32))
+
+
+def _leaf_count(tree) -> int:
+    if isinstance(tree, Mapping):
+        return sum(_leaf_count(v) for v in tree.values())
+    return 1
+
+
+def lm_params_from_arrays(cfg, tree: Mapping, device: DeviceSpec = None):
+    """The port's params module for ``cfg`` (an ``LMStack`` or
+    ``EncDecStack``, on ``device``; ``None`` = the card) holding the
+    weights of the reference's ``init_params`` tree: nested dicts whose
+    leaves are arrays (anything ``np.asarray`` takes). A leaf of shape
+    ``(n, *s)`` under a stacked child fills the ``n`` per-layer parameters
+    (``repro_torch.models.params`` has the path rule). Raises if a leaf is
+    missing, extra or of another shape."""
+    from .models import init_params
+    dev = resolve_device(device)
+    module, _ = init_params(cfg, device="meta")
+    module = module.to_empty(device=dev)
+    n = 0
+    for path, parts, stacked in reference_leaves(module):
+        node = tree
+        for key in path:
+            if not isinstance(node, Mapping) or key not in node:
+                raise KeyError(f"reference params have no leaf "
+                               f"{'/'.join(path)}")
+            node = node[key]
+        arr = np.asarray(node)
+        want = reference_shape(parts, stacked)
+        if arr.shape != want:
+            raise ValueError(f"{'/'.join(path)}: shape {arr.shape}, the "
+                             f"config needs {want}")
+        for part, a in zip(parts, arr if stacked else [arr]):
+            part.copy_(torch.from_numpy(np.array(a, dtype=np.float32)))
+        n += 1
+    if n != _leaf_count(tree):
+        raise ValueError(f"reference params hold {_leaf_count(tree)} leaves, "
+                         f"the config {n}")
+    return module
+
+
+def lm_params_to_arrays(module) -> dict:
+    """The inverse of :func:`lm_params_from_arrays`: the reference's params
+    tree (nested dicts of float32 numpy arrays, stacked children on a
+    leading layers dim) from the port's module."""
+    tree: dict = {}
+    for path, parts, stacked in reference_leaves(module):
+        arrs = [p.detach().to("cpu", torch.float32).numpy() for p in parts]
+        node = tree
+        for key in path[:-1]:
+            node = node.setdefault(key, {})
+        node[path[-1]] = np.stack(arrs) if stacked else arrs[0]
+    return tree

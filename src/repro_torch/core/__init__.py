@@ -14,6 +14,7 @@ Public API (names as in the reference ``repro.core``):
   greedy_color_d2 / _pd2         serial distance-2 / partial-D2 oracles
   color_iterative                speculation+iteration (Alg. 2)
   color_dataflow                 dataflow fixpoint (Alg. 3-5)
+  dataflow_levels                DAG depth / wavefront profile
   color_distributed              BSP over the ranks of a ProcessMesh
   ProcessMesh / partition_graph  a torch.distributed group as a mesh;
   / ShardLayout                  host partitioning into shard-local CSR +
@@ -42,7 +43,7 @@ from .engine import (MexBackend, available_backends, get_backend,
 from .distance2 import partial_square, square
 from .greedy_ref import greedy_color, greedy_color_d2, greedy_color_pd2
 from .iterative import ColoringResult, color_iterative
-from .dataflow import DataflowResult, color_dataflow
+from .dataflow import DataflowResult, color_dataflow, dataflow_levels
 from .graph import ShardLayout
 from .distributed import ProcessMesh, color_distributed, partition_graph
 from .comm_schedule import CommSchedule, schedule_transfers
@@ -66,6 +67,7 @@ __all__ = [
     "greedy_color_d2", "greedy_color_pd2", "MexBackend",
     "available_backends", "get_backend", "register_backend",
     "color_iterative", "ColoringResult", "color_dataflow", "DataflowResult",
+    "dataflow_levels",
     "color_distributed", "ProcessMesh", "partition_graph", "ShardLayout",
     "schedule_transfers", "CommSchedule",
     "validate_coloring", "count_conflicts", "num_colors",

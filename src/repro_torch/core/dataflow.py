@@ -25,7 +25,7 @@ import numpy as np
 import torch
 
 from ..kernels.ops import report_path, report_state
-from .engine import EngineSpec, SweepSpec, fixpoint_sweep
+from .engine import EngineSpec, SweepSpec, fixpoint_iterate, fixpoint_sweep
 from .frontier import compact_frontier, frontier_counts
 from .graph import DeviceGraph, DeviceSpec
 
@@ -151,3 +151,28 @@ def color_dataflow(g, max_sweeps: int = 4096,
         raise RuntimeError(f"DATAFLOW did not converge in {max_sweeps} sweeps")
     return DataflowResult(colors=raw.colors.cpu().numpy(),
                           sweeps=int(raw.sweeps_per_round[0]))
+
+
+def dataflow_levels(g: DeviceGraph, max_iters: int = 4096):
+    """Dataflow level of each vertex (longest dependency chain ending at it).
+
+    Returns (levels [V] int32 >= 1, depth). Wavefront L's vertices are
+    pairwise independent — the paper's XMT threads resolve exactly this
+    schedule through full/empty-bit blocking. Pad edges (``src == V``) land
+    in a sink row; a pad ``dst`` reads level 0.
+    """
+    V = g.num_vertices
+    src, dst = g.src.long(), g.dst.long()
+    dep = dst < src
+
+    def step(lv):
+        lpad = torch.cat([lv, lv.new_zeros(1)])
+        contrib = torch.where(dep, lpad[dst], 0).to(torch.int32)
+        seg = torch.zeros(V + 1, dtype=torch.int32, device=lv.device)
+        seg.scatter_reduce_(0, src, contrib, "amax")
+        return seg[:V] + 1
+
+    lv, _, _ = fixpoint_iterate(step, torch.ones(V, dtype=torch.int32,
+                                                 device=g.src.device),
+                                max_iters=max_iters)
+    return lv, int(lv.max()) if V else 0

@@ -14,13 +14,16 @@ with ``nvcc`` at first use.
 """
 from .conflict import conflict_mask, conflict_mask_plain
 from .firstfit import firstfit, firstfit_plain
-from .ops import KERNELS, launch_counts, reset_launch_counts
+from .ops import (KERNELS, ell_gather_colors, ell_mex, launch_counts,
+                  reset_launch_counts)
 from .round_fused import (COLOR_MASK, CONFLICT_BIT, FORBID_BIT, pack_entries,
-                          round_fused, round_fused_plain)
+                          round_fused, round_fused_plain,
+                          tile_conflict_counts)
 
 __all__ = [
     "firstfit", "firstfit_plain", "round_fused", "round_fused_plain",
     "conflict_mask", "conflict_mask_plain", "pack_entries", "COLOR_MASK",
     "FORBID_BIT", "CONFLICT_BIT", "KERNELS", "launch_counts",
-    "reset_launch_counts",
+    "reset_launch_counts", "ell_gather_colors", "ell_mex",
+    "tile_conflict_counts",
 ]

@@ -3,7 +3,8 @@
 The coloring algorithms reach the kernels only through the engine registry
 (``repro_torch.core.engine``: ``engine="ell_pallas"`` binds ``firstfit``,
 ``engine="fused_pallas"`` binds ``round_fused``) and the Alg. 2 phase-2
-conflict pass (``conflict_mask``). What lives here: :data:`KERNELS`, one
+conflict pass (``conflict_mask``). What lives here: the standalone slab helpers :func:`ell_gather_colors`
+and :func:`ell_mex` (serial-style mex over an ELL adjacency), :data:`KERNELS`, one
 entry per hand-written kernel with the TPU kernel it replaces, the launch
 counters, :func:`kernel_attributes` (what the CUDA runtime reports for a
 kernel), and the hooks through which a running program reports to the
@@ -30,6 +31,8 @@ import contextlib
 import ctypes
 import threading
 from typing import Dict, NamedTuple, Optional
+
+import torch
 
 from .conflict import conflict_mask
 from .firstfit import firstfit
@@ -172,3 +175,23 @@ def report_path(name: str) -> None:
     rec = active_recorder()
     if rec is not None:
         rec.path(name)
+
+
+def ell_gather_colors(colors: torch.Tensor, ell: torch.Tensor) -> torch.Tensor:
+    """Gather neighbor colors for an ELL adjacency slab.
+
+    colors: [V] int32 (0 = uncolored); ell: [V, D] int32 neighbor ids with
+    pad = V. Returns [V, D] int32 (pad slots -> 0); the gather stays outside
+    the kernel.
+    """
+    cpad = torch.cat([colors.to(torch.int32),
+                      colors.new_zeros(1, dtype=torch.int32)])
+    return cpad[torch.clamp_max(ell.long(), colors.shape[0])]
+
+
+def ell_mex(colors: torch.Tensor, ell: torch.Tensor, *,
+            words: int = 16) -> torch.Tensor:
+    """mex per vertex from an ELL slab — the Alg. 1 inner loop through
+    :func:`firstfit` (its CUDA kernel for a tensor on the card, its plain
+    version for a CPU tensor)."""
+    return firstfit(ell_gather_colors(colors, ell), words=words)

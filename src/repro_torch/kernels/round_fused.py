@@ -115,3 +115,14 @@ def round_fused(entries: torch.Tensor, own_colors: torch.Tensor, *,
 
 
 round_fused.launches = 0
+
+
+def tile_conflict_counts(conflict: torch.Tensor,
+                         block_v: int = 512) -> torch.Tensor:
+    """Per-vertex-tile conflict counts from the kernel's per-row flags —
+    the (padded) sum over each ``block_v`` tile of rows, int32."""
+    v = conflict.shape[0]
+    vp = -(-v // block_v) * block_v
+    padded = torch.zeros(vp, dtype=torch.int32, device=conflict.device)
+    padded[:v] = conflict
+    return padded.reshape(vp // block_v, block_v).sum(dim=1, dtype=torch.int32)

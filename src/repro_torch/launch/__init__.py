@@ -1,10 +1,15 @@
-"""Start the ranks of a process mesh: one process per rank, each running one
-importable function, joined into a ``torch.distributed`` group.
+"""Launchers of the port.
+
+This package starts the ranks of a process mesh: one process per rank, each
+running one importable function, joined into a ``torch.distributed`` group.
+Its submodule :mod:`repro_torch.launch.serve` is the LM lane's batched
+serving command.
 
     python -m repro_torch.launch --ranks 4 --device cpu --scale 12
     python -m repro_torch.launch --ranks 4 --device cuda --engine fused_pallas
+    python -m repro_torch.launch.serve --arch qwen3-4b --smoke --device cpu
 
-The command colors an R-MAT graph with ``strategy="distributed"`` on
+The ranks command (``__main__``) colors an R-MAT graph with ``strategy="distributed"`` on
 ``--ranks`` ranks and prints one line per rank (the ranks must agree, and
 rank 0 validates the coloring). From Python, :func:`run_ranks` runs any
 ``"module:function"`` target: each rank calls ``target(mesh, **kwargs)``
@@ -22,7 +27,6 @@ rank's error output.
 """
 from __future__ import annotations
 
-import argparse
 import importlib
 import json
 import os
@@ -170,36 +174,3 @@ def color_rmat(mesh, scale: int = 10, **spec) -> dict:
                 sha256=hashlib.sha256(rep.colors.tobytes()).hexdigest(),
                 valid=bool(validate_coloring(g, rep.colors))
                 if mesh.rank == 0 else None)
-
-
-def main(argv=None) -> int:
-    ap = argparse.ArgumentParser(
-        prog="python -m repro_torch.launch",
-        description="Color an R-MAT graph on a process mesh of local ranks.")
-    ap.add_argument("--rank-of", help=argparse.SUPPRESS)
-    ap.add_argument("--ranks", type=int, default=4)
-    ap.add_argument("--backend", default="gloo", choices=("gloo", "nccl"))
-    ap.add_argument("--device", default="cuda", choices=("cpu", "cuda"))
-    ap.add_argument("--scale", type=int, default=12)
-    ap.add_argument("--engine", default="sort")
-    args = ap.parse_args(argv)
-    if args.rank_of:
-        _rank_main(args.rank_of)
-        return 0
-    results = run_ranks(
-        "repro_torch.launch:color_rmat", args.ranks,
-        dict(scale=args.scale, engine=args.engine),
-        backend=args.backend, device=args.device)
-    for r in results:
-        print(json.dumps(r), flush=True)
-    same = all(r["sha256"] == results[0]["sha256"] for r in results)
-    ok = same and results[0]["valid"]
-    print(f"RMAT-ER scale {args.scale} on {args.ranks} ranks "
-          f"({results[0]['route']} route): rounds={results[0]['rounds']} "
-          f"colors={results[0]['colors']} ranks agree={same} "
-          f"valid={results[0]['valid']}", flush=True)
-    return 0 if ok else 1
-
-
-if __name__ == "__main__":
-    sys.exit(main())

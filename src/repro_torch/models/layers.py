@@ -1,0 +1,213 @@
+"""Core neural layers (the port of ``repro.models.layers``): RMSNorm, RoPE,
+chunked flash attention (global/local/causal/softcapped), GQA via grouped
+einsum, cache attention for decode, and SwiGLU/GELU MLPs.
+
+Everything is a plain function over (params, activations) and keeps the
+reference's algorithm, chunking included: attention never forms the full
+``[Tq, Tk]`` score matrix — q and kv are both chunked with an
+online-softmax accumulator (the reference's ``lax.map``/``lax.scan`` over
+chunks are Python loops here). Where the reference asks a contraction for
+an fp32 result (``preferred_element_type``), the port contracts fp32
+copies of its operands: the products of bf16 values are exact in fp32, so
+both accumulate the same terms. The reference's sharding constraints are
+the identity on one device and are left out.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+_NEG = -1e30
+INT32_MAX = 2**31 - 1
+
+
+def rms_norm(x, w, eps: float = 1e-6):
+    """RMSNorm with an fp32 *reduction* and the data path in ``x.dtype``;
+    scales by ``1 + w``."""
+    ms = x.float().square().mean(dim=-1, keepdim=True)
+    scale = torch.rsqrt(ms + eps).to(x.dtype)
+    return x * scale * (1.0 + w.to(x.dtype))
+
+
+def rope(x, positions, theta: float = 10_000.0):
+    """Rotary embedding, split-half convention, fp32 angles.
+    x: [..., T, H, D], positions [..., T]."""
+    d = x.shape[-1]
+    half = d // 2
+    freq = theta ** (-torch.arange(0, half, dtype=torch.float32,
+                                   device=x.device) / half)
+    angle = positions[..., :, None, None].float() * freq    # [..., T, 1, half]
+    cos, sin = torch.cos(angle), torch.sin(angle)
+    x1, x2 = x[..., :half], x[..., half:]
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+def _softcap(s, cap: float):
+    if cap and cap > 0.0:
+        return torch.tanh(s / cap) * cap
+    return s
+
+
+def _pad_seq(x, n: int, value=0):
+    """Pad dim 1 (the sequence) of ``x`` by ``n`` at the end."""
+    if n == 0:
+        return x
+    pad = [0, 0] * (x.dim() - 2) + [0, n]
+    return F.pad(x, pad, value=value)
+
+
+def flash_attention(
+    q, k, v, *,
+    q_positions, kv_positions,
+    causal: bool = True,
+    window: int = 0,
+    softcap: float = 0.0,
+    q_chunk: int = 1024,
+    kv_chunk: int = 1024,
+    scale: Optional[float] = None,
+):
+    """Chunked online-softmax attention with GQA grouping.
+
+    q: [B, Tq, H, D]; k, v: [B, Tk, KH, Dk/Dv] with H % KH == 0. Never forms
+    [Tq, Tk]; peak score block is [B, KH, G, q_chunk, kv_chunk] fp32.
+    Returns [B, Tq, H, Dv].
+    """
+    b, tq, h, d = q.shape
+    _, tk, kh, dk = k.shape
+    dv = v.shape[-1]
+    g = h // kh
+    scale = scale if scale is not None else d ** -0.5
+
+    qc = min(q_chunk, tq)
+    kc = min(kv_chunk, tk)
+    tq_p = -(-tq // qc) * qc
+    tk_p = -(-tk // kc) * kc
+    qp = _pad_seq(q, tq_p - tq)
+    kp = _pad_seq(k, tk_p - tk)
+    vp = _pad_seq(v, tk_p - tk)
+    qpos = F.pad(q_positions, (0, tq_p - tq), value=-1)
+    kpos = F.pad(kv_positions, (0, tk_p - tk), value=INT32_MAX)
+
+    # [nq, B, KH, G, qc, D] / [nk, B, KH, kc, D]
+    qb = qp.reshape(b, tq_p // qc, qc, kh, g, d).permute(1, 0, 3, 4, 2, 5)
+    kb = kp.reshape(b, tk_p // kc, kc, kh, dk).permute(1, 0, 3, 2, 4)
+    vb = vp.reshape(b, tk_p // kc, kc, kh, dv).permute(1, 0, 3, 2, 4)
+    qpb = qpos.reshape(tq_p // qc, qc)
+    kpb = kpos.reshape(tk_p // kc, kc)
+
+    outs = []
+    for q_i, qpos_i in zip(qb, qpb):
+        q32 = q_i.float()
+        m = torch.full((b, kh, g, qc), _NEG, dtype=torch.float32, device=q.device)
+        l = torch.zeros((b, kh, g, qc), dtype=torch.float32, device=q.device)
+        o = torch.zeros((b, kh, g, qc, dv), dtype=torch.float32, device=q.device)
+        for k_j, v_j, kpos_j in zip(kb, vb, kpb):
+            s = torch.einsum("bkgqd,bksd->bkgqs", q32, k_j.float()) * scale
+            s = _softcap(s, softcap)
+            valid = torch.ones((qc, kc), dtype=torch.bool, device=q.device)
+            if causal:
+                valid &= kpos_j[None, :] <= qpos_i[:, None]
+            if window and window > 0:
+                valid &= (qpos_i[:, None] - kpos_j[None, :]) < window
+            s = torch.where(valid, s, _NEG)
+            m_new = torch.maximum(m, s.amax(dim=-1))
+            p = torch.exp(s - m_new[..., None])
+            alpha = torch.exp(m - m_new)
+            l = l * alpha + p.sum(dim=-1)
+            o = o * alpha[..., None] + torch.einsum(
+                "bkgqs,bksd->bkgqd", p.to(v_j.dtype).float(), v_j.float())
+            m = m_new
+        outs.append(o / torch.clamp_min(l, 1e-30)[..., None])
+    out = torch.stack(outs)                       # [nq, B, KH, G, qc, Dv]
+    out = out.permute(1, 0, 4, 2, 3, 5).reshape(b, tq_p, h, dv)
+    return out[:, :tq].to(q.dtype)
+
+
+def local_attention(q, k, v, *, window: int, q_positions, softcap: float = 0.0):
+    """Banded causal self-attention, O(T·window) FLOPs: w-sized query blocks
+    against (previous + own) key blocks."""
+    b, t, h, d = q.shape
+    w = window
+    tp = -(-t // w) * w
+    n = tp // w
+
+    def blocks(x):
+        return _pad_seq(x, tp - t).reshape(b, n, w, *x.shape[2:])
+
+    qb, kb, vb = blocks(q), blocks(k), blocks(v)
+    pos = F.pad(q_positions, (0, tp - t), value=-1).reshape(n, w)
+    # key positions pad with +inf so padded keys never pass the causal mask
+    # (the -1 query pad is harmless: padded outputs are sliced off)
+    posk_all = F.pad(q_positions, (0, tp - t),
+                     value=INT32_MAX - 1).reshape(n, w)
+    # previous block (zeros/invalid for the first)
+    kprev = torch.cat([torch.zeros_like(kb[:, :1]), kb[:, :-1]], dim=1)
+    vprev = torch.cat([torch.zeros_like(vb[:, :1]), vb[:, :-1]], dim=1)
+    pprev = torch.cat([torch.full((1, w), INT32_MAX - 1, dtype=pos.dtype,
+                                  device=pos.device), posk_all[:-1]], dim=0)
+    outs = []
+    for i in range(n):
+        kk = torch.cat([kprev[:, i], kb[:, i]], dim=1)
+        vv = torch.cat([vprev[:, i], vb[:, i]], dim=1)
+        pk = torch.cat([pprev[i], posk_all[i]], dim=0)
+        outs.append(flash_attention(
+            qb[:, i], kk, vv, q_positions=pos[i], kv_positions=pk,
+            causal=True, window=w, softcap=softcap,
+            q_chunk=min(1024, w), kv_chunk=min(1024, 2 * w)))
+    out = torch.stack(outs, dim=1).reshape(b, tp, h, -1)
+    return out[:, :t].to(q.dtype)
+
+
+def cache_attention(q, k_cache, v_cache, *, cur_len, window: int = 0,
+                    softcap: float = 0.0, scale: Optional[float] = None):
+    """Single-token decode attention over a [B, S, KH, D] cache; positions
+    ``>= cur_len`` (and, with a window, ``< cur_len - window``) are masked."""
+    b, tq, h, d = q.shape
+    _, s, kh, dk = k_cache.shape
+    g = h // kh
+    scale = scale if scale is not None else d ** -0.5
+    qg = q.reshape(b, tq, kh, g, d)
+    scores = torch.einsum("bqkgd,bskd->bkgqs", qg.float(),
+                          k_cache.float()) * scale
+    scores = _softcap(scores, softcap)
+    kv_pos = torch.arange(s, device=q.device)
+    valid = kv_pos[None, :] < cur_len[:, None]            # [B, S]
+    if window and window > 0:
+        valid &= kv_pos[None, :] >= (cur_len[:, None] - window)
+    scores = torch.where(valid[:, None, None, None, :], scores, _NEG)
+    p = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bkgqs,bskd->bqkgd", p.to(v_cache.dtype).float(),
+                       v_cache.float())
+    return out.reshape(b, tq, h, -1).to(q.dtype)
+
+
+def gelu(x):
+    """``jax.nn.gelu``'s default: the tanh approximation."""
+    return F.gelu(x, approximate="tanh")
+
+
+def mlp_apply(p, x, act: str):
+    """``p``: the MLP's weights, already in ``x.dtype``."""
+    if act == "swiglu":
+        h = F.silu(x @ p["w_gate"]) * (x @ p["w_up"])
+    else:
+        h = gelu(x @ p["w_up"])
+    return h @ p["w_down"]
+
+
+def mlp_init(b, d_model: int, d_ff: int, act: str, *, ff_axis: str = "mlp",
+             embed_axis: str = "embed"):
+    if act == "swiglu":
+        b.dense("w_gate", (d_model, d_ff), (embed_axis, ff_axis))
+    b.dense("w_up", (d_model, d_ff), (embed_axis, ff_axis))
+    b.dense("w_down", (d_ff, d_model), (ff_axis, embed_axis))
+    return b
+
+
+def cast_weights(p, dtype):
+    """``{name: weight.to(dtype)}`` for a node's parameters: the reference
+    casts each weight at its use."""
+    return {n: w.to(dtype) for n, w in p.named_parameters(recurse=False)}
