@@ -5,7 +5,7 @@ is right on an NVIDIA card. Run from the repository root:
     python3 chip_smoke.py
 
 Phases, each printing its own lines; any failure raises and exits non-zero.
-They run in the order 1-4, 6-11, 5: the timings come last, on the slabs the
+They run in the order 1-4, 6-12, 5: the timings come last, on the slabs the
 other phases colored.
 
 1. build    — compile the CUDA kernels from ``src/repro_torch/kernels/csrc``
@@ -84,7 +84,20 @@ other phases colored.
               too; whisper-medium is held with one key chunk over its 1500
               frames, and its error as configured, where the full forward
               attends to zero-padded keys as the reference's does, is
-              printed). The lane launches none of the three kernels.
+              printed). The lane launches none of the three kernels;
+12. train   — the LM training lane: ``python -m repro_torch.launch.train``'s
+              ``main`` trains mamba2-130m at its full config (batch 8, seq
+              512, 40 steps, asynchronous checkpoints every 20), then a
+              fresh ``build`` restores step 20 (bit for bit against the
+              file) and replays steps 20-39 to main's losses (tolerance
+              printed); qwen3-4b at its full config (4.41 B params, bf16
+              moments, remat) takes 5 steps of batch 4 x 512: losses, step
+              time, tokens/s, model FLOPs share, device busy share and top
+              ops, peak memory; its one-layer float32 cut takes one step on
+              the card and on CPU tensors from the same weights and batch;
+              every other arch but grok-1-314b takes one step at phase
+              11's widths and depth cuts. The lane launches none of the
+              three kernels.
 
 Ends with a ``{"kernels": [...]}`` line, the card's name and power limit,
 and the result line ``{"ok": true, "device": {...}}``. Imports no JAX and
@@ -128,6 +141,18 @@ LM_FULL = ("starcoder2-3b", "gemma2-2b", "mamba2-130m", "whisper-medium",
 # dense prefix layer): num_layers
 LM_CUT = {"mistral-nemo-12b": 1, "llama-3.2-vision-11b": 5,
           "deepseek-v2-lite-16b": 2, "grok-1-314b": 1}
+# phase 12: the driver's default run at the full mamba2-130m config
+TRAIN_MAIN = ["--arch", "mamba2-130m", "--batch", "8", "--seq", "512",
+              "--steps", "40", "--ckpt-every", "20", "--log-every", "10"]
+TRAIN_RESTORE_STEP = 20
+TRAIN_REPLAY_TOL = 1e-3     # replayed losses: x max(1, |loss|)
+TRAIN_BIG = ("qwen3-4b", 4, 512, 5)   # arch, batch, seq, steps
+BF16_DENSE_FLOPS = 989e12   # H100 SXM dense bf16 peak
+# grok-1-314b's one-layer cut holds 6.53 B params: fp32 params and
+# gradients plus bf16 moments are 78.4 GB before any activation
+TRAIN_SKIP = {"grok-1-314b": "its one-layer cut needs 78.4 GB of fp32 "
+                             "params and gradients plus bf16 moments; it "
+                             "waits for the sharded trainer"}
 # decode vs the full forward misses the bar in the reference too, and the
 # port reproduces the reference: reported, not asserted
 LM_REPORTED = {
@@ -1345,6 +1370,225 @@ def phase_lm():
     return counts
 
 
+# --------------------------------------------------------------------------
+# phase 12: the LM training lane
+# --------------------------------------------------------------------------
+def _train_batch(cfg, b, t):
+    """The data pipeline's step-0 batch of ``b`` x ``t`` (CPU tensors)."""
+    import torch
+    from repro_torch.models import ShapeConfig
+    from repro_torch.train import data
+    dcfg = data.data_config_for(cfg, ShapeConfig("smoke", t, b, "train"))
+    return {k: torch.from_numpy(v) for k, v in data.batch_for_step(dcfg, 0).items()}
+
+
+def _finite_step(m) -> bool:
+    import math
+    return (all(math.isfinite(float(m[k])) for k in ("loss", "grad_norm"))
+            and int(m["skipped"]) == 0)
+
+
+def _train_restore_replay(argv, losses):
+    """(a): restore step 20 of the driver's run into a fresh ``build``,
+    hold it to the file bit for bit, replay steps 20-39 on the same data
+    stream against the driver's losses."""
+    import torch
+    from repro_torch.launch import train as lt
+    from repro_torch.train import checkpoint
+    args = lt.parse_args(argv)
+    cfg, opt_cfg, ts_cfg, dcfg = lt.configs(args)
+    params, opt_state, step_fn, _ = lt.build(cfg, opt_cfg, ts_cfg,
+                                             device="cuda")
+    opt_state, step = lt.restore_into(args.ckpt_dir, params, opt_state,
+                                      step=TRAIN_RESTORE_STEP)
+    saved, _, _ = checkpoint.load(args.ckpt_dir, step=TRAIN_RESTORE_STEP)
+    pairs = [(params.get_parameter(n), saved["params"][n])
+             for n in saved["params"]]
+    pairs += [(opt_state[k][n], saved["opt"][k][n]) for k in ("m", "v")
+              for n in saved["opt"][k]]
+    pairs.append((opt_state["step"], saved["opt"]["step"]))
+    for got, want in pairs:
+        want = want if isinstance(want, torch.Tensor) else torch.from_numpy(want)
+        got = got.detach().cpu()
+        assert got.dtype == want.dtype and torch.equal(got, want)
+    log(f"phase 12 restore step {step} into a fresh build: {len(pairs)} "
+        f"tensors equal the saved ones bit for bit")
+    replay = []
+    for s in range(step, args.steps):
+        _, _, m = step_fn(params, opt_state, lt.batch_on(dcfg, s, "cuda"))
+        replay.append(float(m["loss"]))
+    want = losses[step:]
+    gap = max(abs(a - b) / max(1.0, abs(b)) for a, b in zip(replay, want))
+    log(f"phase 12 replay steps {step}-{args.steps - 1}: max |loss - "
+        f"main's| / max(1, |loss|) = {gap:.3g} (tolerance "
+        f"{TRAIN_REPLAY_TOL}); {sum(a == b for a, b in zip(replay, want))} of "
+        f"{len(want)} losses equal exactly; {replay[0]:.6f} .. {replay[-1]:.6f}")
+    assert len(replay) == len(want) and gap <= TRAIN_REPLAY_TOL, (replay, want)
+
+
+def _train_big():
+    """(b): qwen3-4b at its full config, bf16 moments, remat: 5 steps."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train as lt
+    from repro_torch.models import ShapeConfig
+    from repro_torch.train import AdamWConfig, TrainStepConfig, data
+    arch, b, t, n = TRAIN_BIG
+    cfg = get_config(arch)
+    assert cfg.remat
+    torch.cuda.reset_peak_memory_stats()
+    params, opt_state, step_fn, _ = lt.build(
+        cfg, AdamWConfig(moment_dtype="bfloat16"), TrainStepConfig(),
+        device="cuda")
+    nparams = sum(p.numel() for p in params.parameters())
+    dcfg = data.data_config_for(cfg, ShapeConfig("smoke", t, b, "train"))
+    walls = []
+    for s in range(n):
+        batch = lt.batch_on(dcfg, s, "cuda")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, _, m = step_fn(params, opt_state, batch)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        log(f"phase 12 {arch} step {s}: loss {float(m['loss']):.6f} "
+            f"grad_norm {float(m['grad_norm']):.6f} lr {float(m['lr']):.4g} "
+            f"skipped {int(m['skipped'])}; wall {walls[-1]:.4f} s")
+        assert _finite_step(m), (s, {k: float(v) for k, v in m.items()})
+    peak = torch.cuda.max_memory_allocated()
+    p50 = statistics.median(walls[1:])
+    tokens = b * t
+    flops = 6 * nparams * tokens
+    batch = lt.batch_on(dcfg, n, "cuda")
+    busy, rows = device_busy(lambda: step_fn(params, opt_state, batch))
+    log(f"phase 12 {arch} (full: {cfg.num_layers} layers, d_model "
+        f"{cfg.d_model}, {nparams:,} params; fp32 params, bf16 compute and "
+        f"moments, remat; batch {b} x {t} = {tokens} tokens/step): warm step "
+        f"p50 {p50:.4f} s over steps 1-{n - 1}, {tokens / p50:.1f} tokens/s; "
+        f"model FLOPs share (6 x params x tokens = {flops:.4g} FLOP per step "
+        f"against {BF16_DENSE_FLOPS / 1e12:.0f} TFLOP/s dense bf16) "
+        f"{100 * flops / p50 / BF16_DENSE_FLOPS:.2f} %; max_memory_allocated "
+        f"{peak:,} B ({peak / 2**30:.2f} GiB)")
+    log(f"phase 12 {arch} profiled step {n}: device busy "
+        + ("not measured (the profiler reported no device time)"
+           if busy is None else
+           f"{busy:.4f} s, {100 * busy / p50:.1f} % of the warm step p50"))
+    for name, calls, ms in rows[:10]:
+        log(f"  device time: {ms:9.3f} ms in {calls:5d} calls of {name[:70]}")
+
+
+def _train_card_vs_cpu():
+    """(c): qwen3-4b at full width cut to one layer, float32: one step on
+    the card and one on CPU tensors, from the same weights and batch."""
+    import copy
+    import dataclasses
+    import torch
+    from repro_torch import models
+    from repro_torch.configs import get_config
+    from repro_torch.train import AdamWConfig, init_opt_state, make_train_step
+    cfg = dataclasses.replace(get_config("qwen3-4b"), num_layers=1,
+                              dtype="float32")
+    cpu, _ = models.init_params(cfg, torch.Generator().manual_seed(0),
+                                device="cpu")
+    card = copy.deepcopy(cpu).to("cuda")
+    batch = _train_batch(cfg, 1, 128)
+    opt_cfg = AdamWConfig()
+    out = {}
+    for dev, module in (("cuda", card), ("cpu", cpu)):
+        state = init_opt_state(module, opt_cfg)
+        t0 = time.perf_counter()
+        _, _, m = make_train_step(cfg, opt_cfg)(
+            module, state, {k: v.to(dev) for k, v in batch.items()})
+        float(m["loss"])
+        out[dev] = (m, state, time.perf_counter() - t0)
+    (mc, sc, tc), (mh, sh, th) = out["cuda"], out["cpu"]
+    rel = {k: abs(float(mc[k]) - float(mh[k])) / abs(float(mh[k]))
+           for k in ("loss", "grad_norm")}
+    worst = 0.0
+    for key in ("m", "v"):
+        for name, want in sh[key].items():
+            err = float((sc[key][name].cpu() - want).abs().max())
+            bar = 1e-4 * max(1.0, float(want.abs().max()))
+            assert err <= bar, (key, name, err, bar)
+            worst = max(worst, err / bar)
+    log(f"phase 12 qwen3-4b at full width cut to 1 layer, float32 ("
+        f"{sum(p.numel() for p in cpu.parameters()):,} params; batch 1 x 128): "
+        f"card vs CPU loss {float(mc['loss']):.7f} / {float(mh['loss']):.7f} "
+        f"(rel {rel['loss']:.3g}, bar 1e-4), grad_norm "
+        f"{float(mc['grad_norm']):.6f} / {float(mh['grad_norm']):.6f} (rel "
+        f"{rel['grad_norm']:.3g}, bar 1e-3); m and v at worst {worst:.3g} of "
+        f"their bar 1e-4*max(1, max|cpu|); one step {tc:.2f} s on the card "
+        f"(first call), {th:.2f} s on the CPU")
+    assert rel["loss"] <= 1e-4 and rel["grad_norm"] <= 1e-3, rel
+
+
+def phase_train():
+    """Phase 12 (see the docstring at the top). Returns the kernel launches
+    of the phase (the lane has no kernel of its own)."""
+    import dataclasses
+    import shutil
+    import torch
+    from repro_torch import models
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch import train as lt
+    from repro_torch.train import AdamWConfig, init_opt_state, make_train_step
+
+    _free_card()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    # ---- (a) the driver's default run, then restore + replay ------------
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                        "train_ckpt")
+    shutil.rmtree(root, ignore_errors=True)
+    argv = TRAIN_MAIN + ["--ckpt-dir", root]
+    t = time.perf_counter()
+    losses = lt.main(argv)
+    log(f"phase 12 launch.train main {' '.join(TRAIN_MAIN)}: {len(losses)} "
+        f"steps in {time.perf_counter() - t:.1f} s (init and checkpoints "
+        f"included); loss {losses[0]:.6f} -> {losses[-1]:.6f}")
+    assert losses[-1] < losses[0], losses
+    _train_restore_replay(argv, losses)
+    _free_card()
+    # ---- (b) qwen3-4b at its full config ----------------------------------
+    _train_big()
+    _free_card()
+    # ---- (c) the card against the CPU -------------------------------------
+    _train_card_vs_cpu()
+    _free_card()
+    # ---- (d) every other arch: one step at phase 11's cuts ----------------
+    for arch in LM_FULL + tuple(LM_CUT):
+        if arch in TRAIN_SKIP:
+            log(f"phase 12 {arch}: not run ({TRAIN_SKIP[arch]})")
+            continue
+        t = time.perf_counter()
+        cfg = get_config(arch)
+        if arch in LM_CUT:
+            cfg = dataclasses.replace(cfg, num_layers=LM_CUT[arch])
+        torch.cuda.reset_peak_memory_stats()
+        params, _ = models.init_params(
+            cfg, torch.Generator("cuda").manual_seed(0), device="cuda")
+        opt_cfg = AdamWConfig()
+        state = init_opt_state(params, opt_cfg)
+        batch = {k: v.cuda() for k, v in _train_batch(cfg, 2, 128).items()}
+        _, _, m = make_train_step(cfg, opt_cfg)(params, state, batch)
+        cut = (f"depth cut to {cfg.num_layers} of {get_config(arch).num_layers}"
+               if arch in LM_CUT else "full size")
+        log(f"phase 12 {arch} ({cut}, {cfg.param_count():,} params, "
+            f"{cfg.dtype} compute, fp32 moments; batch 2 x 128): loss "
+            f"{float(m['loss']):.5f} grad_norm {float(m['grad_norm']):.5f} "
+            f"skipped {int(m['skipped'])}; max_memory_allocated "
+            f"{torch.cuda.max_memory_allocated():,} B; "
+            f"{time.perf_counter() - t:.1f} s")
+        assert _finite_step(m), (arch, {k: float(v) for k, v in m.items()})
+        del params, state
+        _free_card()
+    counts = launch_counts()
+    log(f"phase 12 launches: {counts} (the training lane has no kernel of "
+        f"its own)")
+    log(f"phase 12 train: ok ({time.perf_counter() - t0:.1f} s)")
+    return counts
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1500,10 +1744,11 @@ def main() -> int:
     counts_analysis = phase_analysis(graphs, reports[0], models, gb,
                                      dist_ranks)
     counts_lm = phase_lm()
+    counts_train = phase_train()
     by_path = {"main": main_counts, "models": counts_models,
                "stream": counts_stream, "serve": counts_serve,
                "distributed": counts_dist, "analysis": counts_analysis,
-               "lm": counts_lm}
+               "lm": counts_lm, "train": counts_train}
 
     # ---- phase 5: timings at the main path's shapes ---------------------
     dg, c, cpad, V, D, runs = real_slabs(graphs[0], reports[0].colors, words)

@@ -3,11 +3,15 @@
 The coloring system has no weights: its state is the graph. These functions
 rebuild the port's containers from the numpy arrays of the reference's
 (``repro.core.graph``) containers, so both packages can color the identical
-device layout. The LM lane's state is its weights:
+device layout. The LM lane's state is its weights and its optimizer state:
 :func:`lm_params_from_arrays` builds the port's params module from the
-reference's ``init_params`` tree, and :func:`lm_params_to_arrays` goes
-back. They take plain arrays, never reference objects: the port does not
-import the reference.
+reference's ``init_params`` tree, :func:`opt_state_from_arrays` the port's
+AdamW state from the reference's, and the ``*_to_arrays`` functions go
+back, so a ``{"params", "opt"}`` checkpoint of either trainer restores in
+the other. They take plain arrays, never reference objects: the port does
+not import the reference. A bf16 leaf, which numpy holds only through
+``ml_dtypes``, may come in as such an array or as a ``torch.bfloat16``
+tensor (what ``train.checkpoint.load`` gives), and goes out as the latter.
 """
 from __future__ import annotations
 
@@ -98,6 +102,81 @@ def lm_params_from_arrays(cfg, tree: Mapping, device: DeviceSpec = None):
         raise ValueError(f"reference params hold {_leaf_count(tree)} leaves, "
                          f"the config {n}")
     return module
+
+
+def _tensor(a) -> torch.Tensor:
+    """A CPU tensor of a leaf: a tensor, an ``ml_dtypes`` bfloat16 array,
+    or anything ``np.asarray`` takes."""
+    if isinstance(a, torch.Tensor):
+        return a.detach().cpu()
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.int16).copy()).view(torch.bfloat16)
+    return torch.from_numpy(np.array(a))
+
+
+def _array(t: torch.Tensor):
+    """A host leaf: numpy, except bf16, which stays a CPU tensor."""
+    t = t.detach().cpu()
+    return t if t.dtype == torch.bfloat16 else t.numpy()
+
+
+def _names(module) -> dict:
+    return {id(p): n for n, p in module.named_parameters()}
+
+
+def opt_state_from_arrays(module, tree: Mapping) -> dict:
+    """The port's AdamW state (``repro_torch.train.optimizer``) for the
+    params ``module``, on its parameters' devices, from the reference's
+    ``{"m", "v", "step"}``: ``m`` and ``v`` are trees shaped like the
+    reference's params (stacked leaves under a stacked child, in the
+    moments' dtype, which is kept). Raises if a leaf is missing or of
+    another shape."""
+    names = _names(module)
+    out = {"m": {}, "v": {}}
+    for key in ("m", "v"):
+        n = 0
+        for path, parts, stacked in reference_leaves(module):
+            node = tree[key]
+            for k in path:
+                if not isinstance(node, Mapping) or k not in node:
+                    raise KeyError(f"reference opt state has no leaf "
+                                   f"{key}/{'/'.join(path)}")
+                node = node[k]
+            t = _tensor(node)
+            want = reference_shape(parts, stacked)
+            if tuple(t.shape) != want:
+                raise ValueError(f"{key}/{'/'.join(path)}: shape "
+                                 f"{tuple(t.shape)}, the config needs {want}")
+            for part, a in zip(parts, t if stacked else [t]):
+                out[key][names[id(part)]] = a.to(part.device, copy=True)
+            n += 1
+        if n != _leaf_count(tree[key]):
+            raise ValueError(f"reference opt state {key} holds "
+                             f"{_leaf_count(tree[key])} leaves, the config {n}")
+    dev = next(module.parameters()).device
+    out["step"] = _tensor(tree["step"]).to(dev, torch.int32).reshape(())
+    return out
+
+
+def opt_state_to_arrays(module, state: Mapping) -> dict:
+    """The inverse of :func:`opt_state_from_arrays`: the reference's
+    ``{"m", "v", "step"}`` (stacked children on a leading layers dim;
+    float32 moments as numpy arrays, bf16 ones as CPU ``torch.bfloat16``
+    tensors, ``step`` an int32 numpy scalar array)."""
+    names = _names(module)
+    out: dict = {}
+    for key in ("m", "v"):
+        tree: dict = {}
+        for path, parts, stacked in reference_leaves(module):
+            ts = [state[key][names[id(p)]] for p in parts]
+            node = tree
+            for k in path[:-1]:
+                node = node.setdefault(k, {})
+            node[path[-1]] = _array(torch.stack(ts) if stacked else ts[0])
+        out[key] = tree
+    out["step"] = np.asarray(int(state["step"]), np.int32)
+    return out
 
 
 def lm_params_to_arrays(module) -> dict:

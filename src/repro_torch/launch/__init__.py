@@ -2,12 +2,14 @@
 
 This package starts the ranks of a process mesh: one process per rank, each
 running one importable function, joined into a ``torch.distributed`` group.
-Its submodule :mod:`repro_torch.launch.serve` is the LM lane's batched
-serving command.
+Its submodules :mod:`repro_torch.launch.serve` and
+:mod:`repro_torch.launch.train` are the LM lane's batched serving command
+and its one-device training driver.
 
     python -m repro_torch.launch --ranks 4 --device cpu --scale 12
     python -m repro_torch.launch --ranks 4 --device cuda --engine fused_pallas
     python -m repro_torch.launch.serve --arch qwen3-4b --smoke --device cpu
+    python -m repro_torch.launch.train --arch mamba2-130m --smoke --device cpu
 
 The ranks command (``__main__``) colors an R-MAT graph with ``strategy="distributed"`` on
 ``--ranks`` ranks and prints one line per rank (the ranks must agree, and

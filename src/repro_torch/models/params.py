@@ -27,6 +27,7 @@ gradient; a trainer turns them on with ``module.requires_grad_()``.
 """
 from __future__ import annotations
 
+import copy
 from typing import Iterator, List, Optional, Tuple
 
 import torch
@@ -145,6 +146,22 @@ def reference_shape(parts: List[torch.Tensor], stacked: bool) -> Tuple[int, ...]
     """The reference leaf's shape (see :func:`reference_leaves`)."""
     shape = tuple(parts[0].shape)
     return (len(parts),) + shape if stacked else shape
+
+
+def cast_params(node: nn.Module, dtype: torch.dtype) -> nn.Module:
+    """A twin of a params tree whose float32 leaves are ``leaf.to(dtype)``
+    (plain tensors, made inside the autograd graph, so gradients reach the
+    float32 masters); other leaves are shared. The twin keeps the tree's
+    classes and layout, so the model reads it as it reads ``node``, and a
+    recomputing checkpoint (remat) reads the same copies in the backward
+    pass."""
+    twin = copy.copy(node)
+    twin.__dict__["_parameters"] = {
+        name: p.to(dtype) if p.dtype == torch.float32 else p
+        for name, p in node._parameters.items()}
+    twin.__dict__["_modules"] = {name: cast_params(child, dtype)
+                                 for name, child in node._modules.items()}
+    return twin
 
 
 def tree_map(fn, tree):

@@ -8,10 +8,13 @@ An architecture is a (prefix, pattern × groups, suffix) list of
 ``blocks`` (group ``g``'s block ``j`` is ``blocks.{g}.b{j}``), beside
 ``prefix{i}``/``suffix{i}`` blocks, ``embed``, ``final_norm`` and
 ``lm_head`` (``repro_torch.models.params`` gives the path rule onto the
-reference's stacked tree). The groups run in a Python loop: the
-reference's ``lax.scan`` and ``jax.checkpoint`` (``scan_layers``,
-``remat``) shape a trace and a backward pass, which an eager forward has
-neither of, so the port ignores both flags.
+reference's stacked tree). The groups run in a Python loop, so the
+reference's ``lax.scan`` (``scan_layers``) has no counterpart. ``remat``
+has: while autograd records a cache-free forward (training), each pattern
+group runs under ``torch.utils.checkpoint`` (non-reentrant), which keeps
+only the group's input and recomputes its body in the backward pass, the
+reference's ``jax.checkpoint(..., nothing_saveable)`` around its scanned
+group body. Serving (``inference_mode``, or caches given) is unchanged.
 
 Modes: ``full`` (train forward / prefill with cache fill) and ``decode``
 (one token against caches). Caches keep the reference's tree layout —
@@ -23,9 +26,11 @@ with a new ``cur_len``.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any, Dict, Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from .config import ModelConfig
 from .params import ParamBuilder, ParamTree, dtype_of, map_axes, tree_map
@@ -497,6 +502,16 @@ def _logits(cfg, params, x):
     return logits
 
 
+def remat_body(cfg: ModelConfig, body, caches=None):
+    """``body`` under a non-reentrant ``torch.utils.checkpoint`` (kept
+    inputs only, the body recomputed in the backward pass) when
+    ``cfg.remat`` is set, autograd records and no caches are filled;
+    else ``body`` itself."""
+    if cfg.remat and caches is None and torch.is_grad_enabled():
+        return functools.partial(checkpoint, body, use_reentrant=False)
+    return body
+
+
 def forward(cfg: ModelConfig, params, tokens, *, image_embeds=None,
             caches=None):
     """Full-sequence forward. Returns (logits, aux_loss, caches|None); a
@@ -515,8 +530,8 @@ def forward(cfg: ModelConfig, params, tokens, *, image_embeds=None,
                                   positions, cache=c)
         aux_total = aux_total + aux
 
-    for g, gp in enumerate(params["blocks"]):
-        gc = group_view(caches["blocks"], g) if caches is not None else None
+    def group_body(x, gp, gc):
+        auxg = torch.zeros((), dtype=torch.float32, device=x.device)
         for j, spec in enumerate(pattern):
             pj = gp[f"b{j}"]
             cj = gc[f"b{j}"] if gc is not None else None
@@ -530,7 +545,14 @@ def forward(cfg: ModelConfig, params, tokens, *, image_embeds=None,
                     cj["img_v"].copy_(ikv[1])
             else:
                 x, aux = block_apply_full(pj, cfg, spec, x, positions, cache=cj)
-            aux_total = aux_total + aux
+            auxg = auxg + aux
+        return x, auxg
+
+    body = remat_body(cfg, group_body, caches)
+    for g, gp in enumerate(params["blocks"]):
+        gc = group_view(caches["blocks"], g) if caches is not None else None
+        x, aux = body(x, gp, gc)
+        aux_total = aux_total + aux
 
     for i, spec in enumerate(suffix):
         c = caches[f"suffix{i}"] if caches is not None else None
@@ -563,7 +585,8 @@ def chunked_xent(logits, labels, t_chunk: int = 512):
 
 
 def loss_fn(cfg: ModelConfig, params, batch):
-    """Mean next-token cross-entropy (+ MoE aux); forward only here."""
+    """Mean next-token cross-entropy (+ MoE aux); differentiable (the
+    train step calls ``backward`` on it)."""
     logits, aux, _ = forward(cfg, params, batch["tokens"],
                              image_embeds=batch.get("image_embeds"))
     nll = chunked_xent(logits, batch["labels"])

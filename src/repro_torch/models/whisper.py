@@ -13,6 +13,9 @@ layers, ``cur_len``) and are written in place.
 The stack is an ``nn.Module`` (:class:`EncDecStack`) with two
 ``nn.ModuleList``\\ s, ``enc_blocks`` and ``dec_blocks`` (layer ``g`` is
 ``enc_blocks.{g}.b0``), beside ``enc_norm``, ``embed`` and ``final_norm``.
+Under ``cfg.remat``, while autograd records a cache-free forward, each
+encoder and decoder block body runs under ``torch.utils.checkpoint``, as
+the reference wraps both scanned bodies in ``jax.checkpoint``.
 """
 from __future__ import annotations
 
@@ -25,7 +28,7 @@ from .params import ParamBuilder, ParamTree, dtype_of
 from . import layers as L
 from .transformer import (
     BlockSpec, attn_init, attn_full, attn_decode, mlp_part, block_init,
-    group_view, merge_heads, proj_heads, stack_spec, _meta,
+    group_view, merge_heads, proj_heads, remat_body, stack_spec, _meta,
 )
 
 _SELF = BlockSpec("enc", "dense")        # non-causal, no rope
@@ -92,8 +95,9 @@ def encode(cfg: ModelConfig, params, frames):
     x = frames.to(dtype_of(cfg.dtype))
     x = x + _sinusoid(x.shape[1], cfg.d_model, x.dtype, x.device)[None]
     positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
+    body = remat_body(cfg, _apply_enc)
     for gp in params["enc_blocks"]:
-        x = _apply_enc(gp["b0"], cfg, x, positions)
+        x = body(gp["b0"], cfg, x, positions)
     return L.rms_norm(x, params["enc_norm"], cfg.norm_eps)
 
 
@@ -142,10 +146,11 @@ def forward(cfg: ModelConfig, params, tokens, frames, caches=None):
     positions = torch.arange(t, dtype=torch.int32, device=tokens.device)
     x = _embed_dec(cfg, params, tokens, dtype_of(cfg.dtype))
     x = x + _sinusoid(t, cfg.d_model, x.dtype, x.device)[None]
+    body = remat_body(cfg, _apply_dec, caches)
     for g, gp in enumerate(params["dec_blocks"]):
         gc = group_view(caches["blocks"], g) if caches is not None else None
-        x = _apply_dec(gp["b0"], cfg, x, positions, enc_out,
-                       cache=gc["b0"] if gc else None)
+        x = body(gp["b0"], cfg, x, positions, enc_out,
+                 cache=gc["b0"] if gc else None)
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
     logits = x @ params["embed"].T.to(x.dtype)
     new_caches = None

@@ -1,0 +1,81 @@
+"""The train step (the port of ``repro.train.train_step``): loss ->
+backward -> clip -> AdamW, with optional microbatch gradient accumulation
+and NaN-step rejection, on one device.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from .. import models
+from ..models.params import cast_params
+from .optimizer import AdamWConfig, adamw_update
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainStepConfig:
+    microbatches: int = 1           # gradient accumulation steps
+    # the reference donates the params and state buffers to its jitted
+    # step; the port's step updates them in place, so the flag has no
+    # meaning here and is kept for the reference's signature
+    donate: bool = True
+    # mixed precision: the forward reads bf16 copies of the fp32 params,
+    # cast inside the autograd graph, so the gradients land on the fp32
+    # masters the optimizer updates
+    bf16_compute_params: bool = False
+
+
+def make_train_step(model_cfg, opt_cfg: AdamWConfig,
+                    ts_cfg: TrainStepConfig = TrainStepConfig()):
+    """Returns ``train_step(params, opt_state, batch) -> (params,
+    opt_state, metrics)``. ``params`` is the params module (its parameters
+    are switched to ``requires_grad``), ``opt_state`` the optimizer's
+    state; both are updated in place and returned. ``batch`` maps names to
+    tensors on the params' device. ``metrics`` holds 0-d tensors: ``loss``,
+    the loss function's own metrics (``nll``, ``aux``; the last
+    microbatch's), ``lr``, ``grad_norm`` and ``skipped``."""
+
+    def loss_for(params, mb):
+        if ts_cfg.bf16_compute_params:
+            params = cast_params(params, torch.bfloat16)
+        return models.loss_fn(model_cfg, params, mb)
+
+    def train_step(params, opt_state, batch):
+        params.requires_grad_(True)
+        named = dict(params.named_parameters())
+        for p in named.values():
+            p.grad = None
+        n = max(1, ts_cfg.microbatches)
+        if n == 1:
+            mbs = [batch]
+        else:
+            for k, x in batch.items():
+                if x.shape[0] % n:
+                    raise ValueError(f"batch {k} of {x.shape[0]} rows does "
+                                     f"not split into {n} microbatches")
+            mbs = [{k: x.reshape(n, x.shape[0] // n, *x.shape[1:])[i]
+                    for k, x in batch.items()} for i in range(n)]
+        loss_sum = None
+        for mb in mbs:
+            loss, metrics = loss_for(params, mb)
+            # fp32 gradients accumulate in .grad across microbatches
+            loss.backward()
+            loss = loss.detach()
+            loss_sum = loss if loss_sum is None else loss_sum + loss
+        if n > 1:
+            with torch.no_grad():
+                for p in named.values():
+                    if p.grad is not None:
+                        p.grad.div_(n)
+        loss = loss_sum / n if n > 1 else loss_sum
+        grads = {k: p.grad for k, p in named.items()}
+        _, _, opt_metrics = adamw_update(opt_cfg, grads, params, opt_state,
+                                         skip=~torch.isfinite(loss))
+        for p in named.values():
+            p.grad = None
+        out = {"loss": loss, **{k: v.detach() for k, v in metrics.items()},
+               **opt_metrics}
+        return params, opt_state, out
+
+    return train_step

@@ -388,3 +388,70 @@ def test_ell_mex_launches_firstfit_on_card(card):
     assert launch_counts()["firstfit"] == before + 1
     want = firstfit_plain(ell_gather_colors(colors, ell), words=3)
     assert torch.equal(got.cpu(), want)
+
+
+# --------------------------------------------------------------------------
+# the LM training lane on the card
+# --------------------------------------------------------------------------
+@pytest.mark.parametrize("arch", ["qwen3-4b", "mamba2-130m", "whisper-medium",
+                                  "deepseek-v2-lite-16b"])
+def test_train_step_on_card_matches_cpu(arch, card):
+    """One train step of a float32 copy of the smoke config from the same
+    weights and batch on the card and on the CPU: loss within 1e-4 and
+    grad_norm within 1e-3 relative, the moments within 1e-4·max(1,
+    max|cpu|), the params within 2·lr + 1e-6 (the CPU tests' bars)."""
+    import dataclasses
+    from repro_torch import models
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.train import (AdamWConfig, data, init_opt_state,
+                                   make_train_step)
+    cfg = dataclasses.replace(get_smoke_config(arch), dtype="float32")
+    opt_cfg = AdamWConfig(lr=1e-3, warmup_steps=2, total_steps=10)
+    dcfg = data.data_config_for(cfg, models.ShapeConfig("t", 16, 2, "train"))
+    batch = {k: torch.from_numpy(v) for k, v in
+             data.batch_for_step(dcfg, 0).items()}
+    out = {}
+    for dev in ("cpu", card):
+        module, _ = models.init_params(cfg, torch.Generator().manual_seed(0),
+                                       device="cpu")
+        module = module.to(dev)
+        state = init_opt_state(module, opt_cfg)
+        _, _, m = make_train_step(cfg, opt_cfg)(
+            module, state, {k: v.to(dev) for k, v in batch.items()})
+        out[str(dev)] = (m, dict(module.named_parameters()), state)
+    (mc, pc, sc), (mh, ph, sh) = out[str(card)], out["cpu"]
+    assert int(mc["skipped"]) == 0
+    assert abs(float(mc["loss"]) - float(mh["loss"])) <= 1e-4 * float(mh["loss"])
+    assert abs(float(mc["grad_norm"]) - float(mh["grad_norm"])) <= \
+        1e-3 * float(mh["grad_norm"])
+    for name, want in ph.items():
+        got = pc[name].detach().cpu()
+        assert float((got - want.detach()).abs().max()) <= 2 * 1e-3 + 1e-6
+        for key in ("m", "v"):
+            w = sh[key][name]
+            assert float((sc[key][name].cpu() - w).abs().max()) <= \
+                1e-4 * max(1.0, float(w.abs().max()))
+
+
+def test_async_save_of_card_tensors_restores_onto_the_card(card, tmp_path):
+    """The snapshot is taken before save returns: card tensors changed at
+    once in place are written as they were, and restore puts each leaf back
+    on the card, in its dtype, bit for bit (bf16 included)."""
+    from repro_torch.train import checkpoint
+    gen = torch.Generator(card).manual_seed(0)
+    tree = {"p": torch.randn(64, 33, generator=gen, device=card),
+            "opt": {"m": torch.randn(64, 33, generator=gen,
+                                     device=card).to(torch.bfloat16),
+                    "step": torch.tensor(7, dtype=torch.int32, device=card)}}
+    want = {"p": tree["p"].clone(), "m": tree["opt"]["m"].clone()}
+    th = checkpoint.save(str(tmp_path), 7, tree, async_write=True)
+    tree["p"].add_(1.0)
+    tree["opt"]["m"].zero_()
+    th.join(timeout=60)
+    assert not th.is_alive()
+    got, step = checkpoint.restore(str(tmp_path), tree)
+    assert step == 7 and got["p"].device.type == "cuda"
+    assert got["opt"]["m"].dtype == torch.bfloat16
+    assert torch.equal(got["p"], want["p"])
+    assert torch.equal(got["opt"]["m"], want["m"])
+    assert int(got["opt"]["step"]) == 7
