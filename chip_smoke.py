@@ -5,7 +5,7 @@ is right on an NVIDIA card. Run from the repository root:
     python3 chip_smoke.py
 
 Phases, each printing its own lines; any failure raises and exits non-zero.
-They run in the order 1-4, 6-12, 5: the timings come last, on the slabs the
+They run in the order 1-4, 6-13, 5: the timings come last, on the slabs the
 other phases colored.
 
 1. build    — compile the CUDA kernels from ``src/repro_torch/kernels/csrc``
@@ -97,7 +97,27 @@ other phases colored.
               the card and on CPU tensors from the same weights and batch;
               every other arch but grok-1-314b takes one step at phase
               11's widths and depth cuts. The lane launches none of the
-              three kernels.
+              three kernels;
+13. train-sharded — the sharded trainer (``launch.train.build(mesh=)``,
+              DTensor params and moments over a ``("data", "model")``
+              mesh) on qwen3-4b at full width cut to 2 layers, float32.
+              The route is fixed (``SHARDED_ROUTE``): gloo cannot carry
+              DTensor's all_gather on CUDA tensors and NCCL takes one rank
+              per card, so (b) a 1 x 1 NCCL mesh on the card takes step 0
+              against the one-device ``build`` (the step bars of
+              ``tests/test_torch_train.py``), then 2 warm steps of batch
+              4 x 512 (p50, peak memory, collectives); a 2 x 2 mesh of
+              four CPU ranks takes one step of batch 2 x 32, each rank's
+              shards held against the same blocks of the one-device step
+              on the card from the same weights; per rank, the bytes of
+              params and moments it holds, its step wall and its
+              collectives by kind, count and bytes; (c) at the smoke
+              config, a checkpoint of a 2 x 2 run restored onto (4, 1)
+              with ``restore(shardings=)`` and onto the card, each next
+              step held to the 2 x 2 run's. Each of its five ranks
+              counts its own kernel launches from 0; the phase reports
+              their sum, which is 0: the lane launches none of the
+              kernels.
 
 Ends with a ``{"kernels": [...]}`` line, the card's name and power limit,
 and the result line ``{"ok": true, "device": {...}}``. Imports no JAX and
@@ -149,10 +169,30 @@ TRAIN_REPLAY_TOL = 1e-3     # replayed losses: x max(1, |loss|)
 TRAIN_BIG = ("qwen3-4b", 4, 512, 5)   # arch, batch, seq, steps
 BF16_DENSE_FLOPS = 989e12   # H100 SXM dense bf16 peak
 # grok-1-314b's one-layer cut holds 6.53 B params: fp32 params and
-# gradients plus bf16 moments are 78.4 GB before any activation
+# gradients plus bf16 moments are 78.4 GB before any activation. Ranks that
+# share one card share its memory, so no sharding fits it on one card
 TRAIN_SKIP = {"grok-1-314b": "its one-layer cut needs 78.4 GB of fp32 "
                              "params and gradients plus bf16 moments; it "
-                             "waits for the sharded trainer"}
+                             "waits for a machine with 2 or more cards"}
+# phase 13: the sharded trainer on qwen3-4b at full width, depth cut
+SHARDED_ARCH = "qwen3-4b"
+SHARDED_LAYERS = 2
+SHARDED_CARD = (4, 512, 3)  # batch, seq, steps on the 1 x 1 NCCL mesh
+SHARDED_CPU = (2, 32)       # batch, seq on the 2 x 2 mesh of CPU ranks
+SHARDED_TIMEOUT_S = 300
+SHARDED_ROUTE = (
+    "NCCL refuses two ranks on one card, and gloo cannot carry DTensor's "
+    "collectives on CUDA tensors under torch 2.11.0+cu128: its functional "
+    "all_gather_into_tensor (every Shard -> Replicate) kills the rank with "
+    "SIGSEGV (the c10d all_gather, reduce_scatter, all_reduce and "
+    "all_to_all calls pass; launch.mesh.make_mesh refuses such a mesh). "
+    "So the 2 x 2 mesh runs on four CPU ranks, and the card runs the same "
+    "step on a 1 x 1 NCCL mesh; cross-card sharding waits for a machine "
+    "with four cards")
+SHARDED_MOE_SKIP = (
+    "(d) deepseek-v2-lite-16b not run: on CPU ranks its step does not fit "
+    "the phase's time; the MoE constrain sites and expert parallelism on "
+    "model are held on the CPU by tests/test_torch_train_sharded.py")
 # decode vs the full forward misses the bar in the reference too, and the
 # port reproduces the reference: reported, not asserted
 LM_REPORTED = {
@@ -1589,6 +1629,389 @@ def phase_train():
     return counts
 
 
+# ---------------------------------------------------------------- phase 13
+def _sharded_cfg(layers: int = SHARDED_LAYERS):
+    """qwen3-4b at full width, depth cut, float32 compute (the bars of
+    ``tests/test_torch_train.py`` are float32 bars)."""
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config(SHARDED_ARCH), num_layers=layers,
+                               dtype="float32")
+
+
+class _StepBars:
+    """``tests/test_torch_train.py``'s one-step bars between a state (got)
+    and the state it must equal (want), both one step from the same state,
+    fed leaf by leaf: loss and grad_norm within 1e-5·max(1, |want|); m and v
+    within 1e-4·max(1, max|want|); the gradient read off m (g = m / (1 -
+    b1)) within 1e-5·max(1, max|g_want|); params within 1e-6 where |g_want|
+    clears that bar by 10, within 2·lr + 1e-6 elsewhere. ``gmax`` is
+    max|g_want| over the whole state."""
+
+    def __init__(self, got: dict, want: dict, gmax: float, b1: float = 0.9):
+        for k in ("loss", "grad_norm"):
+            err = abs(got[k] - want[k])
+            assert err <= 1e-5 * max(1.0, abs(want[k])), (k, got[k], want[k])
+        self.metrics = {k: abs(got[k] - want[k]) for k in ("loss", "grad_norm")}
+        self.lr, self.b1 = want["lr"], b1
+        self.gbar = 1e-5 * max(1.0, gmax)
+        self.perr = self.mv = 0.0
+        self.loose = self.total = self.leaves = 0
+
+    def leaf(self, name, p, p_want, m, m_want, v, v_want):
+        for a, b, what in ((m, m_want, "m"), (v, v_want, "v")):
+            bar = 1e-4 * max(1.0, float(b.abs().max()))
+            err = float((a - b).abs().max())
+            assert err <= bar, (name, what, err, bar)
+            self.mv = max(self.mv, err / bar)
+        g, g_want = m / (1 - self.b1), m_want / (1 - self.b1)
+        assert float((g - g_want).abs().max()) <= self.gbar, (name, "g")
+        d = (p - p_want).abs()
+        sure = g_want.abs() >= 10 * self.gbar
+        if bool(sure.any()):
+            self.perr = max(self.perr, float(d[sure].max()))
+        assert self.perr <= 1e-6, (name, self.perr)
+        assert float(d.max()) <= 2 * self.lr + 1e-6, (name, float(d.max()))
+        self.loose += int((~sure).sum())
+        self.total += d.numel()
+        self.leaves += 1
+
+    def text(self) -> str:
+        return (f"loss diff {self.metrics['loss']:.3g}, grad_norm diff "
+                f"{self.metrics['grad_norm']:.3g} (bar 1e-5 rel); m, v at "
+                f"worst {self.mv:.3g} of their bar; params {self.perr:.3g} "
+                f"where |g| clears the grad bar (bar 1e-6), "
+                f"{self.loose:,} of {self.total:,} entries under 2*lr + 1e-6; "
+                f"{self.leaves} leaves")
+
+
+def _gmax(state, b1: float = 0.9) -> float:
+    from repro_torch.parallel.sharding import whole
+    return max(float(whole(m).abs().max()) for m in state["m"].values()) \
+        / (1 - b1)
+
+
+def _held_bytes(params, state) -> tuple:
+    """(local bytes, whole bytes) of params plus moments on this rank."""
+    from repro_torch.parallel.sharding import local
+    loc = tot = 0
+    for name, p in params.named_parameters():
+        for t in (p, state["m"][name], state["v"][name]):
+            loc += local(t).numel() * t.element_size()
+            tot += t.numel() * t.element_size()
+    return loc, tot
+
+
+def _collectives(fn) -> dict:
+    """The collectives ``fn`` issues on this rank: ``{kind: [count, bytes
+    sent]}`` (``CommDebugMode`` counts them; the bytes are each call's
+    input tensor)."""
+    import collections
+    import torch
+    from torch.distributed.tensor.debug import CommDebugMode
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Sent(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.bytes = collections.Counter()
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            if func.namespace in ("_c10d_functional", "c10d"):
+                t = args[0][0] if isinstance(args[0], (list, tuple)) else args[0]
+                if isinstance(t, torch.Tensor):
+                    self.bytes[func.overloadpacket.__name__] += \
+                        t.numel() * t.element_size()
+            return func(*args, **(kwargs or {}))
+
+    with CommDebugMode() as comm, Sent() as sent:
+        fn()
+    counts = {k.__name__: v for k, v in comm.get_comm_counts().items()}
+    return {k: [n, sent.bytes.get(k, 0)] for k, n in sorted(counts.items())}
+
+
+def sharded_card_rank(pmesh) -> dict:
+    """Phase 13 (b) on the card: one rank, a 1 x 1 NCCL mesh. The sharded
+    step (``build(mesh=)``) against the one-device ``build`` from the same
+    seed on the same batch, then its warm steps and collectives."""
+    import torch
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch import train as lt
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import ShapeConfig
+    from repro_torch.parallel.sharding import whole
+    from repro_torch.train import AdamWConfig, TrainStepConfig, data
+    reset_launch_counts()
+    cfg = _sharded_cfg()
+    b, t, n = SHARDED_CARD
+    opt_cfg, ts_cfg = AdamWConfig(), TrainStepConfig()
+    mesh = make_mesh((1, 1), ("data", "model"), pmesh.device)
+    dcfg = data.data_config_for(cfg, ShapeConfig("smoke", t, b, "train"))
+    params, state, step, _ = lt.build(cfg, opt_cfg, ts_cfg, device="cuda",
+                                      mesh=mesh)
+    nparams = sum(p.numel() for p in params.parameters())
+    _, m0 = step(params, state, lt.batch_on(dcfg, 0, "cuda"))[1:]
+    got = {k: float(v) for k, v in m0.items()}
+    snap = {name: (whole(p).detach().clone(), whole(state["m"][name]).clone(),
+                   whole(state["v"][name]).clone())
+            for name, p in params.named_parameters()}
+    p1, s1, f1, _ = lt.build(cfg, opt_cfg, ts_cfg, device="cuda")
+    _, m1 = f1(p1, s1, lt.batch_on(dcfg, 0, "cuda"))[1:]
+    want = {k: float(v) for k, v in m1.items()}
+    bars = _StepBars(got, want, _gmax(s1))
+    for name, q in p1.named_parameters():
+        bars.leaf(name, snap[name][0], q.detach(), snap[name][1], s1["m"][name],
+                  snap[name][2], s1["v"][name])
+    del snap, p1, s1, f1
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    walls, losses = [], [got["loss"]]
+    for s in range(1, n):
+        batch = lt.batch_on(dcfg, s, "cuda")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, _, m = step(params, state, batch)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        losses.append(float(m["loss"]))
+    peak = torch.cuda.max_memory_allocated()
+    comm = _collectives(lambda: step(params, state,
+                                     lt.batch_on(dcfg, n, "cuda")))
+    loc, tot = _held_bytes(params, state)
+    return dict(rank=pmesh.rank, backend=pmesh.backend, nparams=nparams,
+                bars=bars.text(), losses=losses, walls=walls,
+                p50=statistics.median(walls), peak=peak, local=loc,
+                whole=tot, comm=comm, tokens=b * t,
+                mesh=str(tuple(mesh.shape)), launches=launch_counts())
+
+
+def _hold(got, want, names, rank: int) -> str:
+    """The step bars between two states, checked on rank 0. ``got`` and
+    ``want`` are ``(metrics, params module, opt state)``: of a mesh run
+    (every rank passes its own, and each leaf is gathered) or of a run on
+    rank 0 alone (the other ranks pass ``None``). ``names`` fixes the leaf
+    order every rank follows."""
+    from repro_torch.parallel.sharding import whole
+
+    def host(x):
+        return whole(x.detach()).cpu()
+    gmax = _gmax(want[2]) if want is not None else None
+    bars = _StepBars(got[0], want[0], gmax) if rank == 0 else None
+    for name in names:
+        sides = []
+        for side in (got, want):
+            if side is None:
+                sides.append((None,) * 3)
+                continue
+            p = side[1].get_parameter(name)
+            sides.append((host(p), host(side[2]["m"][name]),
+                          host(side[2]["v"][name])))
+        if bars is not None:
+            (p, m, v), (pw, mw, vw) = sides
+            bars.leaf(name, p, pw, m, mw, v, vw)
+    return bars.text() if bars is not None else ""
+
+
+def _say(rank: int, text: str):
+    """A rank's progress line (in its log under ``build/``)."""
+    print(f"[rank {rank} {time.strftime('%H:%M:%S')}] {text}", flush=True)
+
+
+def _shard_of(t, whole_t):
+    """The block of ``whole_t`` (the one-device tensor) that DTensor ``t``'s
+    local shard holds: each tensor dim split by at most one mesh dim, in
+    equal parts (``spec_for_array`` keeps only splits that divide)."""
+    idx = [slice(None)] * t.ndim
+    coord = t.device_mesh.get_coordinate()
+    for mdim, p in enumerate(t.placements):
+        if p.is_shard():
+            n = t.shape[p.dim] // t.device_mesh.size(mdim)
+            idx[p.dim] = slice(coord[mdim] * n, (coord[mdim] + 1) * n)
+    return whole_t[tuple(idx)]
+
+
+def _hold_shards(got, want, names) -> dict:
+    """The step bars between a mesh run (``got``: metrics, params, state,
+    DTensor leaves) and a one-device run on the card (``want``), each
+    rank checking its own shards against the same block of the card's
+    tensors: nothing is gathered."""
+    bars = _StepBars(got[0], want[0], _gmax(want[2]))
+    for name in names:
+        pw = want[1].get_parameter(name).detach()
+        sides = [(side[1].get_parameter(name).detach(), side[2]["m"][name],
+                  side[2]["v"][name]) for side in (got, want)]
+        (p, m, v), (pw, mw, vw) = sides
+        bars.leaf(name, p.to_local().to(pw.device), _shard_of(p, pw),
+                  m.to_local().to(pw.device), _shard_of(m, mw),
+                  v.to_local().to(pw.device), _shard_of(v, vw))
+    return dict(text=bars.text(), perr=bars.perr, mv=bars.mv,
+                loose=bars.loose, total=bars.total)
+
+
+def sharded_cpu_rank(pmesh, root: str) -> dict:
+    """Phase 13 on four CPU ranks (the route: see ``SHARDED_ROUTE``).
+    (b) the 2 x 2 step at full width, its collectives counted, against the
+    one-device step on the card from the same weights (each rank draws
+    them on the card, keeps that twin there and checks its own shards
+    against it); (c) a 2 x 2 run at the smoke config checkpointed after
+    its first step and restored onto (4, 1) and onto the card, each next
+    step against the 2 x 2 run's."""
+    import copy
+    import torch
+    from repro_torch import models
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch import train as lt
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import ShapeConfig
+    from repro_torch.train import (AdamWConfig, TrainStepConfig, checkpoint,
+                                   data, init_opt_state, make_train_step)
+    reset_launch_counts()
+    rank = pmesh.rank
+    opt_cfg, ts_cfg = AdamWConfig(), TrainStepConfig()
+    m22 = make_mesh((2, 2), ("data", "model"), "cpu")
+    m41 = make_mesh((4, 1), ("data", "model"), "cpu")
+    out = dict(rank=rank, backend=pmesh.backend)
+    b, t = SHARDED_CPU
+
+    def metrics(m):
+        return {k: float(v) for k, v in m.items()}
+
+    # ---- (b) full width --------------------------------------------------
+    cfg = _sharded_cfg()
+    dcfg = data.data_config_for(cfg, ShapeConfig("smoke", t, b, "train"))
+    t0 = time.perf_counter()
+    twin, axes = models.init_params(cfg, torch.Generator("cuda").manual_seed(0),
+                                    device="cuda")
+    params, state, step = lt.shard_for_mesh(
+        cfg, copy.deepcopy(twin).to("cpu"), axes, opt_cfg, ts_cfg, m22)
+    out["build_s"] = time.perf_counter() - t0
+    _say(rank, f"(b) built in {out['build_s']:.1f} s")
+    names = [n for n, _ in params.named_parameters()]
+    t0 = time.perf_counter()
+    out["comm"] = _collectives(lambda: out.__setitem__("m0", metrics(step(
+        params, state, lt.batch_on(dcfg, 0, "cpu"))[2])))
+    out["step0_s"] = time.perf_counter() - t0
+    _say(rank, f"(b) step 0 in {out['step0_s']:.1f} s")
+    # the ranks take the card's one-device step in turn: four at once do
+    # not fit its memory
+    t0 = time.perf_counter()
+    for turn in range(pmesh.num_devices):
+        if turn == rank:
+            twin_state = init_opt_state(twin, opt_cfg)
+            want = metrics(make_train_step(cfg, opt_cfg, ts_cfg)(
+                twin, twin_state, lt.batch_on(dcfg, 0, "cuda"))[2])
+            out["bars_card"] = _hold_shards((out["m0"], params, state),
+                                            (want, twin, twin_state), names)
+            del twin, twin_state
+            torch.cuda.empty_cache()
+        torch.distributed.barrier()
+    _say(rank, f"(b) held against the card in {time.perf_counter() - t0:.1f} s")
+    out["local"], out["whole"] = _held_bytes(params, state)
+    del params, state, step
+    # ---- (c) elastic restart, at the smoke config ------------------------
+    cfg = dataclasses.replace(get_smoke_config(SHARDED_ARCH), dtype="float32")
+    dcfg = data.data_config_for(cfg, ShapeConfig("smoke", t, b, "train"))
+    params, state, step, _ = lt.build(cfg, opt_cfg, ts_cfg, device="cpu",
+                                      mesh=m22)
+    names = [n for n, _ in params.named_parameters()]
+    step(params, state, lt.batch_on(dcfg, 0, "cpu"))
+    ck = os.path.join(root, "ck")
+    checkpoint.save(ck, 1, lt.state_tree(params, state))
+    torch.distributed.barrier()
+    mine = (metrics(step(params, state, lt.batch_on(dcfg, 1, "cpu"))[2]),
+            params, state)
+    shell, axes = models.init_params(cfg, device="meta")
+    p41, s41, f41 = lt.shard_for_mesh(cfg, shell.to_empty(device="cpu"),
+                                      axes, opt_cfg, ts_cfg, m41)
+    s41, out["restored_at"] = lt.restore_into(ck, p41, s41, mesh=m41)
+    got = (metrics(f41(p41, s41, lt.batch_on(dcfg, 1, "cpu"))[2]), p41, s41)
+    out["bars_4x1"] = _hold(got, mine, names, rank)
+    card = None
+    if rank == 0:
+        one = models.init_params(cfg, device="meta")[0].to_empty(device="cuda")
+        card = [None, one, init_opt_state(one, opt_cfg)]
+        card[2], _ = lt.restore_into(ck, card[1], card[2])
+        card[0] = metrics(make_train_step(cfg, opt_cfg, ts_cfg)(
+            card[1], card[2], lt.batch_on(dcfg, 1, "cuda"))[2])
+    out["bars_card_restart"] = _hold(card, mine, names, rank)
+    _say(rank, "(c) held")
+    out["restart_params"] = sum(p.numel() for p in params.parameters())
+    out["launches"] = launch_counts()
+    return out
+
+
+def phase_sharded(card: str):
+    """Phase 13 (see the docstring at the top). Returns the kernel
+    launches of the phase, summed over its five ranks, each of which
+    counts its own from 0 (the lane has no kernel of its own)."""
+    import shutil
+    from repro_torch.kernels import KERNELS
+    from repro_torch.launch import run_ranks
+    _free_card()
+    t0 = time.perf_counter()
+    tag = f"phase 13 [{card}]"
+    log(f"phase 13 route: {SHARDED_ROUTE}")
+    cfg = _sharded_cfg()
+    # ---- (b) the 1 x 1 NCCL mesh on the card ------------------------------
+    one = run_ranks("chip_smoke:sharded_card_rank", 1, backend="nccl",
+                    device="cuda", timeout=SHARDED_TIMEOUT_S)[0]
+    b, t, n = SHARDED_CARD
+    log(f"{tag} {SHARDED_ARCH} at full width cut to {cfg.num_layers} layers "
+        f"({one['nparams']:,} params, float32), batch {b} x {t}, on a 1 x 1 "
+        f"NCCL mesh on the card: step 0 against the one-device build: "
+        f"{one['bars']}")
+    log(f"{tag} 1 x 1 rank 0: params + moments {one['local']:,} B held of "
+        f"{one['whole']:,} B; losses "
+        f"{', '.join(f'{x:.6f}' for x in one['losses'])}"
+        f"; warm step p50 {one['p50']:.4f} s over steps 1-{n - 1} "
+        f"({one['tokens'] / one['p50']:.1f} tokens/s); max_memory_allocated "
+        f"{one['peak']:,} B over the warm steps; collectives of one step "
+        f"{one['comm'] or 'none'}")
+    # ---- (b, c) the 2 x 2 mesh on four CPU ranks --------------------------
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                        "sharded")
+    shutil.rmtree(root, ignore_errors=True)
+    ranks = run_ranks("chip_smoke:sharded_cpu_rank", 4, dict(root=root),
+                      backend="gloo", device="cpu", workdir=root,
+                      timeout=SHARDED_TIMEOUT_S)
+    b, t = SHARDED_CPU
+    r0 = ranks[0]
+    worst = max(ranks, key=lambda r: r["bars_card"]["perr"])
+    log(f"{tag} {SHARDED_ARCH} (same cut) on a 2 x 2 (data, model) mesh of "
+        f"four CPU ranks, batch {b} x {t}: step 0 against the one-device "
+        f"step on the card from the same weights, each rank's shards "
+        f"against the same blocks on the card; rank {worst['rank']}, the "
+        f"largest param error: {worst['bars_card']['text']}; m and v over "
+        f"all four ranks at worst "
+        f"{max(r['bars_card']['mv'] for r in ranks):.3g} of their bar")
+    for r in ranks:
+        log(f"{tag} 2 x 2 CPU rank {r['rank']}: params + moments "
+            f"{r['local']:,} B held of {r['whole']:,} B "
+            f"({100 * r['local'] / r['whole']:.1f} %); build {r['build_s']:.1f}"
+            f" s; step 0 {r['step0_s']:.1f} s (cold, collectives counted); "
+            f"max_memory_allocated not measured (a CPU rank; its host peak "
+            f"is not measured either); collectives of step 0 (kind: count, "
+            f"bytes sent) {r['comm']}")
+    log(f"{tag} (c) a 2 x 2 run of {SHARDED_ARCH} at the smoke config "
+        f"({r0['restart_params']:,} params; at full width its 11.76 GB "
+        f"checkpoint costs the CPU ranks more than the phase's time) "
+        f"checkpointed after step 0, restored onto (4, 1) with "
+        f"restore(shardings=) (step {r0['restored_at']}), its next step "
+        f"against the 2 x 2 run's: {r0['bars_4x1']}")
+    log(f"{tag} (c) the same checkpoint restored onto the card (one device), "
+        f"its next step against the 2 x 2 run's: {r0['bars_card_restart']}")
+    assert all(r["m0"] == r0["m0"] for r in ranks)
+    for r in ranks:
+        assert r["local"] * 3 < r["whole"], r    # held sharded at rest
+    log(f"phase 13 {SHARDED_MOE_SKIP}")
+    counts = {k.name: sum(x["launches"][k.name] for x in [one, *ranks])
+              for k in KERNELS}
+    log(f"phase 13 launches, summed over the 1 x 1 rank and the four CPU "
+        f"ranks: {counts} (the sharded trainer has no kernel of its own)")
+    log(f"phase 13 train-sharded: ok ({time.perf_counter() - t0:.1f} s)")
+    return counts
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1745,10 +2168,12 @@ def main() -> int:
                                      dist_ranks)
     counts_lm = phase_lm()
     counts_train = phase_train()
+    counts_sharded = phase_sharded(card)
     by_path = {"main": main_counts, "models": counts_models,
                "stream": counts_stream, "serve": counts_serve,
                "distributed": counts_dist, "analysis": counts_analysis,
-               "lm": counts_lm, "train": counts_train}
+               "lm": counts_lm, "train": counts_train,
+               "sharded": counts_sharded}
 
     # ---- phase 5: timings at the main path's shapes ---------------------
     dg, c, cpad, V, D, runs = real_slabs(graphs[0], reports[0].colors, words)

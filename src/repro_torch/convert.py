@@ -12,6 +12,9 @@ the other. They take plain arrays, never reference objects: the port does
 not import the reference. A bf16 leaf, which numpy holds only through
 ``ml_dtypes``, may come in as such an array or as a ``torch.bfloat16``
 tensor (what ``train.checkpoint.load`` gives), and goes out as the latter.
+The ``*_to_arrays`` functions take DTensor leaves too (a sharded run's
+state), gathering each leaf's global value: every rank of the mesh calls
+them.
 """
 from __future__ import annotations
 
@@ -23,6 +26,7 @@ import torch
 from .core.graph import (BipartiteGraph, DeviceGraph, DeviceSpec, Graph,
                          resolve_device)
 from .models.params import reference_leaves, reference_shape
+from .parallel.sharding import whole
 
 _ARRAY_FIELDS = ("src", "dst", "row_ptr", "col_idx", "ell_slot", "inc_ptr")
 _STATIC_FIELDS = ("num_vertices", "num_directed_edges", "max_degree",
@@ -117,7 +121,7 @@ def _tensor(a) -> torch.Tensor:
 
 def _array(t: torch.Tensor):
     """A host leaf: numpy, except bf16, which stays a CPU tensor."""
-    t = t.detach().cpu()
+    t = whole(t.detach()).cpu()
     return t if t.dtype == torch.bfloat16 else t.numpy()
 
 
@@ -169,7 +173,7 @@ def opt_state_to_arrays(module, state: Mapping) -> dict:
     for key in ("m", "v"):
         tree: dict = {}
         for path, parts, stacked in reference_leaves(module):
-            ts = [state[key][names[id(p)]] for p in parts]
+            ts = [whole(state[key][names[id(p)]]) for p in parts]
             node = tree
             for k in path[:-1]:
                 node = node.setdefault(k, {})
@@ -185,7 +189,8 @@ def lm_params_to_arrays(module) -> dict:
     leading layers dim) from the port's module."""
     tree: dict = {}
     for path, parts, stacked in reference_leaves(module):
-        arrs = [p.detach().to("cpu", torch.float32).numpy() for p in parts]
+        arrs = [whole(p.detach()).to("cpu", torch.float32).numpy()
+                for p in parts]
         node = tree
         for key in path[:-1]:
             node = node.setdefault(key, {})

@@ -4,7 +4,10 @@ This package starts the ranks of a process mesh: one process per rank, each
 running one importable function, joined into a ``torch.distributed`` group.
 Its submodules :mod:`repro_torch.launch.serve` and
 :mod:`repro_torch.launch.train` are the LM lane's batched serving command
-and its one-device training driver.
+and its training driver (one device, or a ``DeviceMesh`` of ranks through
+``train_on_mesh``); :mod:`repro_torch.launch.mesh` and
+:mod:`repro_torch.launch.specs` build the meshes and the abstract inputs
+and placements the sharded trainer uses.
 
     python -m repro_torch.launch --ranks 4 --device cpu --scale 12
     python -m repro_torch.launch --ranks 4 --device cuda --engine fused_pallas

@@ -1,10 +1,19 @@
-"""End-to-end training driver on one device (the port of
-``repro.launch.train``).
+"""End-to-end training driver (the port of ``repro.launch.train``).
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch mamba2-130m \\
         --smoke --steps 8 --device cpu
     PYTHONPATH=src python -m repro_torch.launch.train --arch mamba2-130m \\
         --steps 300 --batch 8 --seq 512 --ckpt-dir build/ckpt   # on the card
+
+and on a mesh of ranks: 4 gloo ranks on the CPU, as here, or NCCL ranks
+on cards, one rank per card (``launch.mesh.make_mesh`` refuses several
+gloo ranks on the card: gloo does not carry DTensor's collectives on CUDA
+tensors)::
+
+    PYTHONPATH=src python -c "from repro_torch.launch import run_ranks; \\
+        print(run_ranks('repro_torch.launch.train:train_on_mesh', 4, \\
+        dict(mesh_shape=[2, 2], arch='qwen3-4b', smoke=True, steps=4), \\
+        device='cpu'))"
 
 Features exercised: the deterministic data pipeline (skip-to-step on
 resume), the train step, NaN-step rejection, atomic + asynchronous
@@ -14,8 +23,12 @@ tree is ``{"params": {name: tensor}, "opt": optimizer state}`` under the
 port's parameter names; ``repro_torch.convert`` maps it onto the
 reference's layout and back.
 
-:func:`build` is the one-device path. The reference's mesh branch (a
-sharded step over a device mesh) comes with the sharded trainer.
+:func:`build` makes the one-device run, or with ``mesh=`` the reference's
+sharded step: the same seed-0 params, drawn whole and then split over the
+mesh by the logical-axis rules (``parallel.sharding``), DTensor params and
+moments that each rank holds only its shards of, the batch split on
+``"batch"``, the step under those rules. :func:`train_on_mesh` is the
+``run_ranks`` target that runs the driver on a mesh.
 """
 from __future__ import annotations
 
@@ -28,20 +41,51 @@ from ..configs import get_config, get_smoke_config
 from ..core.graph import DeviceSpec, resolve_device
 from .. import models
 from ..models.config import ShapeConfig
+from ..models.params import param_axes
+from ..parallel.sharding import activation_rules, rules_for_mesh
 from ..train import (AdamWConfig, TrainStepConfig, checkpoint, data,
                      init_opt_state, make_train_step)
+from . import specs as S
 
 
 def build(cfg, opt_cfg: AdamWConfig, ts_cfg: TrainStepConfig,
-          device: DeviceSpec = None):
-    """``(params, opt_state, step_fn, None)`` on ``device`` (``None`` = the
+          device: DeviceSpec = None, mesh=None):
+    """``(params, opt_state, step_fn, mesh)`` on ``device`` (``None`` = the
     card): params drawn from seed 0, zero optimizer state, the train step.
-    The last slot is the reference's mesh, which a one-device run has not."""
+    Without a mesh the last slot is ``None``; with one (a ``DeviceMesh`` of
+    ``device``'s type) the params are split over it (see
+    :func:`shard_for_mesh`)."""
     dev = resolve_device(device)
-    params, _ = models.init_params(cfg, torch.Generator(dev).manual_seed(0),
-                                   device=dev)
-    return (params, init_opt_state(params, opt_cfg),
-            make_train_step(cfg, opt_cfg, ts_cfg), None)
+    params, axes = models.init_params(cfg, torch.Generator(dev).manual_seed(0),
+                                      device=dev)
+    if mesh is None:
+        return (params, init_opt_state(params, opt_cfg),
+                make_train_step(cfg, opt_cfg, ts_cfg), None)
+    return shard_for_mesh(cfg, params, axes, opt_cfg, ts_cfg, mesh) + (mesh,)
+
+
+def shard_for_mesh(cfg, params, axes, opt_cfg: AdamWConfig,
+                   ts_cfg: TrainStepConfig, mesh):
+    """``(params, opt_state, step_fn)`` of the sharded step on ``mesh``:
+    ``params`` (the whole params module, the same on every rank, with its
+    logical-axes tree ``axes``) split over the mesh in place by
+    ``rules_for_mesh(mesh)``; zero moments placed as the params are;
+    ``step_fn(params, opt_state, batch)`` takes the global batch (the same
+    on every rank), splits it on ``"batch"`` and runs the train step under
+    the rules, plain tensors made inside the models entering replicated."""
+    from torch.distributed.tensor.experimental import implicit_replication
+    rules = rules_for_mesh(mesh)
+    named = dict(params.named_parameters())
+    S.device_put(params, S.tree_shardings(named, param_axes(params, axes),
+                                          rules, mesh), mesh)
+    step = make_train_step(cfg, opt_cfg, ts_cfg)
+
+    def step_fn(p, o, batch):
+        b = S.batch_put(batch, cfg, rules, mesh)
+        with activation_rules(rules), implicit_replication():
+            return step(p, o, b)
+
+    return params, init_opt_state(params, opt_cfg), step_fn
 
 
 def state_tree(params, opt_state) -> dict:
@@ -50,11 +94,14 @@ def state_tree(params, opt_state) -> dict:
 
 
 @torch.no_grad()
-def restore_into(root: str, params, opt_state, step=None):
+def restore_into(root: str, params, opt_state, step=None, mesh=None):
     """Restore a run's checkpoint (``step=None`` takes ``LATEST``) into
-    ``params`` (copied in place) and return ``(opt_state, step)``."""
-    tree, step = checkpoint.restore(root, state_tree(params, opt_state),
-                                    step=step)
+    ``params`` (copied in place) and return ``(opt_state, step)``. On a
+    ``mesh`` each leaf lands on the placements the run's own leaf has."""
+    proto = state_tree(params, opt_state)
+    tree, step = checkpoint.restore(
+        root, proto, step=step, mesh=mesh,
+        shardings=None if mesh is None else S.placements_of(proto))
     for name, p in params.named_parameters():
         p.copy_(tree["params"][name])
     return tree["opt"], step
@@ -99,15 +146,26 @@ def main(argv=None):
     """Train (resuming from ``LATEST`` under ``--ckpt-dir``) and return the
     losses of the steps this run took."""
     args = parse_args(argv)
-    cfg, opt_cfg, ts_cfg, dcfg = configs(args)
-    dev = resolve_device(args.device)
+    return run(args, resolve_device(args.device))
 
-    params, opt_state, step_fn, _ = build(cfg, opt_cfg, ts_cfg, device=dev)
+
+def run(args: argparse.Namespace, dev: torch.device, mesh=None):
+    """The driver's loop on ``dev``, or on ``mesh`` (every rank runs it;
+    rank 0 prints and writes the checkpoints). Returns the losses."""
+    cfg, opt_cfg, ts_cfg, dcfg = configs(args)
+    params, opt_state, step_fn, _ = build(cfg, opt_cfg, ts_cfg, device=dev,
+                                          mesh=mesh)
+    quiet = mesh is not None and mesh.get_rank() != 0
+
+    def say(text):
+        if not quiet:
+            print(text, flush=True)
 
     start = 0
     if args.ckpt_dir and checkpoint.latest_step(args.ckpt_dir) is not None:
-        opt_state, start = restore_into(args.ckpt_dir, params, opt_state)
-        print(f"[train] resumed from step {start}")
+        opt_state, start = restore_into(args.ckpt_dir, params, opt_state,
+                                        mesh=mesh)
+        say(f"[train] resumed from step {start}")
 
     losses = []
     t0 = time.time()
@@ -118,9 +176,9 @@ def main(argv=None):
         losses.append(float(m["loss"]))
         if (s + 1) % args.log_every == 0:
             dt = (time.time() - t0) / args.log_every
-            print(f"[train] step {s+1}/{args.steps} loss={losses[-1]:.4f} "
-                  f"gnorm={float(m['grad_norm']):.3f} lr={float(m['lr']):.2e} "
-                  f"skipped={int(m['skipped'])} {dt:.2f}s/step")
+            say(f"[train] step {s+1}/{args.steps} loss={losses[-1]:.4f} "
+                f"gnorm={float(m['grad_norm']):.3f} lr={float(m['lr']):.2e} "
+                f"skipped={int(m['skipped'])} {dt:.2f}s/step")
             t0 = time.time()
         if args.ckpt_dir and (s + 1) % args.ckpt_every == 0:
             if pending_ckpt is not None:
@@ -134,9 +192,27 @@ def main(argv=None):
         checkpoint.save(args.ckpt_dir, args.steps,
                         state_tree(params, opt_state))
     if losses:
-        print(f"[train] done. first loss {losses[0]:.4f} -> "
-              f"last {losses[-1]:.4f}")
+        say(f"[train] done. first loss {losses[0]:.4f} -> "
+            f"last {losses[-1]:.4f}")
     return losses
+
+
+def train_on_mesh(pmesh, mesh_shape=(2, 2), **flags) -> dict:
+    """A :func:`repro_torch.launch.run_ranks` target: the driver on a mesh
+    of ``mesh_shape`` (axes ``("data", "model")``, with ``"pod"`` leading
+    a 3-d shape) over the launch's ranks, on their device. ``flags`` are
+    the CLI's flags by their argument names (``arch="qwen3-4b"``,
+    ``smoke=True``, ``steps=4``, ...). Returns this rank's losses."""
+    from .mesh import make_mesh
+    args = parse_args([])
+    unknown = set(flags) - set(vars(args))
+    if unknown:
+        raise TypeError(f"train_on_mesh: unknown flags {sorted(unknown)}")
+    vars(args).update(flags, device=pmesh.device.type)
+    axes = ("pod", "data", "model")[-len(mesh_shape):]
+    mesh = make_mesh(mesh_shape, axes, pmesh.device)
+    losses = run(args, pmesh.device, mesh)
+    return dict(rank=pmesh.rank, losses=losses)
 
 
 if __name__ == "__main__":

@@ -9,8 +9,9 @@ online-softmax accumulator (the reference's ``lax.map``/``lax.scan`` over
 chunks are Python loops here). Where the reference asks a contraction for
 an fp32 result (``preferred_element_type``), the port contracts fp32
 copies of its operands: the products of bf16 values are exact in fp32, so
-both accumulate the same terms. The reference's sharding constraints are
-the identity on one device and are left out.
+both accumulate the same terms. The reference's sharding constraints
+(``parallel.sharding.constrain``) stand where the reference has them: the
+identity on one device, a redistribute of a DTensor on a mesh.
 """
 from __future__ import annotations
 
@@ -18,6 +19,10 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
+
+from ..parallel.sharding import (constrain, current_rules, on_mesh,
+                                 on_shards, placements, spec_for_array,
+                                 unshard)
 
 _NEG = -1e30
 INT32_MAX = 2**31 - 1
@@ -73,8 +78,30 @@ def flash_attention(
 
     q: [B, Tq, H, D]; k, v: [B, Tk, KH, Dk/Dv] with H % KH == 0. Never forms
     [Tq, Tk]; peak score block is [B, KH, G, q_chunk, kv_chunk] fp32.
-    Returns [B, Tq, H, Dv].
+    Returns [B, Tq, H, Dv]. On a mesh each rank attends its own (batch,
+    kv-head) blocks (:func:`kv_blocks`), with no collective inside.
     """
+    return on_shards(_flash_attention, kv_blocks(k), 1)(
+        q, k, v, q_positions, kv_positions, causal, window, softcap,
+        q_chunk, kv_chunk, scale)
+
+
+def kv_blocks(k):
+    """On a mesh (``k`` a DTensor under active rules): the placements that
+    split dim 0 as ``"batch"`` and dim 2 as ``"kv_heads"`` (for ``k``'s
+    sizes), the blocks attention needs no collective within; a query's
+    heads split with its kv heads (``H = KH·G``, kv-major). ``None`` off a
+    mesh."""
+    rules = current_rules()
+    if rules is None or not on_mesh(k):
+        return None
+    mesh = k.device_mesh
+    return placements(spec_for_array(
+        tuple(k.shape), ("batch", None, "kv_heads", None), rules, mesh), mesh)
+
+
+def _flash_attention(q, k, v, q_positions, kv_positions, causal, window,
+                     softcap, q_chunk, kv_chunk, scale):
     b, tq, h, d = q.shape
     _, tk, kh, dk = k.shape
     dv = v.shape[-1]
@@ -95,6 +122,12 @@ def flash_attention(
     qb = qp.reshape(b, tq_p // qc, qc, kh, g, d).permute(1, 0, 3, 4, 2, 5)
     kb = kp.reshape(b, tk_p // kc, kc, kh, dk).permute(1, 0, 3, 2, 4)
     vb = vp.reshape(b, tk_p // kc, kc, kh, dv).permute(1, 0, 3, 2, 4)
+    # the reference pins the kv-head sharding on the chunked operands, so
+    # the chunk loops need no collective (on a mesh this runs on one
+    # (batch, kv-head) block already, and these are the identity)
+    qb = constrain(qb, (None, "batch", "kv_heads", None, None, None))
+    kb = constrain(kb, (None, "batch", "kv_heads", None, None))
+    vb = constrain(vb, (None, "batch", "kv_heads", None, None))
     qpb = qpos.reshape(tq_p // qc, qc)
     kpb = kpos.reshape(tk_p // kc, kc)
 
@@ -128,7 +161,13 @@ def flash_attention(
 
 def local_attention(q, k, v, *, window: int, q_positions, softcap: float = 0.0):
     """Banded causal self-attention, O(T·window) FLOPs: w-sized query blocks
-    against (previous + own) key blocks."""
+    against (previous + own) key blocks; per (batch, kv-head) block on a
+    mesh, as :func:`flash_attention`."""
+    return on_shards(_local_attention, kv_blocks(k), 1)(
+        q, k, v, window, q_positions, softcap)
+
+
+def _local_attention(q, k, v, window, q_positions, softcap):
     b, t, h, d = q.shape
     w = window
     tp = -(-t // w) * w
@@ -182,6 +221,35 @@ def cache_attention(q, k_cache, v_cache, *, cur_len, window: int = 0,
     out = torch.einsum("bkgqs,bskd->bqkgd", p.to(v_cache.dtype).float(),
                        v_cache.float())
     return out.reshape(b, tq, h, -1).to(q.dtype)
+
+
+def delay(x, i: int):
+    """``x`` [B, T, ...] shifted ``i`` steps later along T, zeros first:
+    ``F.pad(x, (.., i, 0))[:, :-i]``, written with ops DTensor can shard
+    (a pad and a negative slice fail there under torch 2.11)."""
+    t = x.shape[1]
+    if i >= t:
+        return torch.zeros_like(x)
+    return torch.cat([torch.zeros_like(x[:, :i]), x[:, :t - i]], dim=1)
+
+
+def tail(x, n: int):
+    """The last ``n`` steps of ``x`` [B, T, ...] along T, zeros before it
+    when T < n: ``F.pad(x, (.., n, 0))[:, -n:]``."""
+    t = x.shape[1]
+    if t >= n:
+        return x[:, t - n:]
+    return F.pad(x, [0, 0] * (x.dim() - 2) + [n - t, 0])
+
+
+def lookup(table, tokens):
+    """``table[tokens]``, the embedding gather. On a mesh it is
+    ``F.embedding`` on the table with its vocab dim made whole: the index
+    op's backward fails under torch 2.11, and the vocab-split embedding's
+    masked partial sum fails on a 2-d mesh."""
+    if on_mesh(table):
+        return F.embedding(tokens, unshard(table, 0))
+    return table[tokens]
 
 
 def gelu(x):

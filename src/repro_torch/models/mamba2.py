@@ -11,8 +11,9 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from ..parallel.sharding import row_local
 from .config import ModelConfig, SSMConfig
-from .layers import rms_norm
+from .layers import delay, rms_norm, tail
 
 
 def dims(cfg: ModelConfig, s: SSMConfig):
@@ -51,8 +52,7 @@ def _causal_conv(xbc, w, bias):
     kw = w.shape[0]
     out = xbc * w[kw - 1]
     for i in range(1, kw):
-        shifted = F.pad(xbc, (0, 0, i, 0))[:, :-i]
-        out = out + shifted * w[kw - 1 - i]
+        out = out + delay(xbc, i) * w[kw - 1 - i]
     return F.silu(out + bias)
 
 
@@ -117,7 +117,7 @@ def mamba2_forward(p, x, cfg: ModelConfig, s: SSMConfig):
     z, xbc_raw, dt_raw = _split_proj(proj, cfg, s)
     # last (W-1) pre-conv inputs: the decode-time conv window tail
     w = s.conv_width
-    conv_tail = F.pad(xbc_raw, (0, 0, w - 1, 0))[:, -(w - 1):]
+    conv_tail = tail(xbc_raw, w - 1)
     xbc = _causal_conv(xbc_raw, p["conv_w"].to(dt_), p["conv_b"].to(dt_))
     gn = s.n_groups * s.d_state
     xs = xbc[..., :d_inner]
@@ -128,7 +128,10 @@ def mamba2_forward(p, x, cfg: ModelConfig, s: SSMConfig):
     dta = dt * a                                                 # [B,T,H]
     xh = xs.reshape(*xs.shape[:2], n_heads, s.headdim)
     xh_dt = xh.float() * dt[..., None]
-    y, final = ssd_scan(xh_dt, dta, b_mat.float(), c_mat.float(), s.chunk)
+    # the scan is row-local; on a mesh each rank scans its own rows (its
+    # cumsum's backward, a flip, has no DTensor strategy under torch 2.11)
+    y, final = row_local(ssd_scan, 2)(xh_dt, dta, b_mat.float(),
+                                      c_mat.float(), s.chunk)
     y = y + xh.float() * p["D"].float()[None, None, :, None]
     y = y.reshape(*xs.shape[:2], d_inner).to(dt_)
     y = rms_norm(y * F.silu(z), p["norm_w"], cfg.norm_eps)

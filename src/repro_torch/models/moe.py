@@ -15,6 +15,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from ..parallel.sharding import constrain, row_local
 from .config import ModelConfig, MoEConfig
 from .layers import cast_weights, gelu, mlp_apply, mlp_init
 
@@ -39,22 +40,15 @@ def top_k_lower_index(probs, k: int):
     return vals[..., :k], idx[..., :k]
 
 
-def moe_apply(p, x, cfg: ModelConfig, moe: MoEConfig):
-    """x: [B, T, d] -> ([B, T, d], aux_loss).
-
-    Row-local dispatch: routing, sort, scatter and combine are batched per
-    sequence row; capacity is per row, ``int(T*k/E*cf + 1)``; dropped tokens
-    ride the residual.
-    """
+def _dispatch(x, probs, k: int, e: int, cap: int):
+    """Route each row's tokens (top-k, renormalized) and scatter them into
+    the ``[B, E, cap, d]`` expert buffer. Returns the buffer, the combine
+    weights ``w·keep``, the sorted experts, slots and tokens (``[B, T*K]``)
+    and the per-expert token counts ``[E]`` (float, for the aux loss).
+    Row-local: on a mesh it runs on each rank's rows."""
     bsz, t, d = x.shape
-    e, k = moe.num_experts, moe.top_k
     nk = t * k
-    cap = int(t * k / e * moe.capacity_factor + 1)
-    dt = x.dtype
     dev = x.device
-
-    logits = (x @ p["router"].to(dt)).float()
-    probs = torch.softmax(logits, dim=-1)                         # [B, T, E]
     top_p, top_i = top_k_lower_index(probs, k)                    # [B, T, K]
     top_p = top_p / torch.clamp_min(top_p.sum(-1, keepdim=True), 1e-9)
 
@@ -75,10 +69,48 @@ def moe_apply(p, x, cfg: ModelConfig, moe: MoEConfig):
 
     b_idx = torch.arange(bsz, device=dev)[:, None].expand(bsz, nk)
     x_disp = x[b_idx, t_s]                                        # [B, T*K, d]
-    # slot ``cap`` is the drop sink: written, then cut off
-    buf = torch.zeros((bsz, e, cap + 1, d), dtype=dt, device=dev)
+    # The buffer stays expert-replicated (its inputs already are); the
+    # E-sharded expert weights localize the FFN per model shard and only
+    # the output buffer is gathered back. Slot ``cap`` is the drop sink:
+    # written, then cut off.
+    buf = torch.zeros((bsz, e, cap + 1, d), dtype=x.dtype, device=dev)
     buf[b_idx, e_s, pos_c] = x_disp
-    buf = buf[:, :, :cap]
+    counts = torch.bincount(flat_e.reshape(-1), minlength=e).float()
+    return buf[:, :, :cap], w_s * keep, e_s, pos_c, t_s, counts
+
+
+def _combine(out_buf, wk, e_s, pos_c, t_s, t: int):
+    """Gather each routed token's expert output back (zero for a dropped
+    slot), weight it, and scatter-add it onto its token: ``[B, t, d]``."""
+    bsz, _, _, d = out_buf.shape
+    nk = e_s.shape[1]
+    b_idx = torch.arange(bsz, device=out_buf.device)[:, None].expand(bsz, nk)
+    out_pad = F.pad(out_buf, (0, 0, 0, 1))                        # [B, E, cap+1, d]
+    gathered = out_pad[b_idx, e_s, pos_c]                         # [B, T*K, d]
+    weighted = gathered * wk[..., None].to(out_buf.dtype)
+    out = torch.zeros((bsz, t, d), dtype=out_buf.dtype, device=out_buf.device)
+    out.index_put_((b_idx, t_s), weighted, accumulate=True)
+    return out
+
+
+def moe_apply(p, x, cfg: ModelConfig, moe: MoEConfig):
+    """x: [B, T, d] -> ([B, T, d], aux_loss).
+
+    Row-local dispatch: routing, sort, scatter and combine are batched per
+    sequence row; capacity is per row, ``int(T*k/E*cf + 1)``; dropped tokens
+    ride the residual.
+    """
+    bsz, t, d = x.shape
+    e, k = moe.num_experts, moe.top_k
+    nk = t * k
+    cap = int(t * k / e * moe.capacity_factor + 1)
+    dt = x.dtype
+
+    logits = (x @ p["router"].to(dt)).float()
+    probs = torch.softmax(logits, dim=-1)                         # [B, T, E]
+    buf, wk, e_s, pos_c, t_s, counts = row_local(
+        _dispatch, 6, summed=(5,))(x, probs, k, e, cap)
+    buf = constrain(buf, ("batch", None, None, None))
 
     # ---- expert FFN (batched over rows x experts)
     wg = p["w_gate"].to(dt)
@@ -89,21 +121,17 @@ def moe_apply(p, x, cfg: ModelConfig, moe: MoEConfig):
             * torch.einsum("becd,edf->becf", buf, wu)
     else:
         h = gelu(torch.einsum("becd,edf->becf", buf, wu))
+    h = constrain(h, ("batch", "experts", None, None))
     out_buf = torch.einsum("becf,efd->becd", h, wd)
+    out_buf = constrain(out_buf, ("batch", None, None, None))  # gather E back
 
-    # ---- combine (gather back, zero for a dropped slot; weighted scatter-add)
-    out_pad = F.pad(out_buf, (0, 0, 0, 1))                        # [B, E, cap+1, d]
-    gathered = out_pad[b_idx, e_s, pos_c]                         # [B, T*K, d]
-    weighted = gathered * (w_s * keep)[..., None].to(dt)
-    out = torch.zeros((bsz, t, d), dtype=dt, device=dev)
-    out.index_put_((b_idx, t_s), weighted, accumulate=True)
+    out = row_local(_combine, 1)(out_buf, wk, e_s, pos_c, t_s, t)
 
     if moe.num_shared:
         out = out + mlp_apply(cast_weights(p["shared"], dt), x, cfg.act)
 
     # ---- load-balance auxiliary loss (Switch-style, global means)
-    frac_tokens = torch.bincount(flat_e.reshape(-1), minlength=e).float() \
-        / (bsz * nk)
+    frac_tokens = counts / (bsz * nk)
     frac_probs = probs.mean(dim=(0, 1))
     aux = e * torch.sum(frac_tokens * frac_probs) * moe.router_aux_weight
     return out, aux

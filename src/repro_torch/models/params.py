@@ -142,6 +142,21 @@ def reference_leaves(node: nn.Module, prefix: Tuple[str, ...] = ()
             yield from reference_leaves(child, prefix + (name,))
 
 
+def param_axes(node: nn.Module, axes: dict) -> dict:
+    """``{parameter name: logical axes}`` of a params module from its
+    logical-axes tree: a stacked leaf's per-layer parameters drop the
+    leading ``"layers"`` axis (which no rule shards)."""
+    names = {id(p): n for n, p in node.named_parameters()}
+    out = {}
+    for path, parts, stacked in reference_leaves(node):
+        a = axes
+        for key in path:
+            a = a[key]
+        for p in parts:
+            out[names[id(p)]] = tuple(a)[1:] if stacked else tuple(a)
+    return out
+
+
 def reference_shape(parts: List[torch.Tensor], stacked: bool) -> Tuple[int, ...]:
     """The reference leaf's shape (see :func:`reference_leaves`)."""
     shape = tuple(parts[0].shape)

@@ -14,8 +14,9 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from ..parallel.sharding import constrain
 from .config import ModelConfig, RGLRUConfig
-from .layers import gelu
+from .layers import delay, gelu, tail
 
 _C = 8.0
 
@@ -38,8 +39,12 @@ def rglru_init(b, cfg: ModelConfig, r: RGLRUConfig):
 
 def _gates(p, u):
     dt = u.dtype
-    r_g = torch.sigmoid(u @ p["w_r"].to(dt) + p["b_r"].to(dt))
-    i_g = torch.sigmoid(u @ p["w_i"].to(dt) + p["b_i"].to(dt))
+    # the products are reduced before the bias joins them: DTensor (torch
+    # 2.11) cannot add a split bias to a partial sum
+    r_g = torch.sigmoid(constrain(u @ p["w_r"].to(dt), ("batch", None, "rnn"))
+                        + p["b_r"].to(dt))
+    i_g = torch.sigmoid(constrain(u @ p["w_i"].to(dt), ("batch", None, "rnn"))
+                        + p["b_i"].to(dt))
     log_a = -_C * F.softplus(p["lambda_p"].float()) * r_g.float()
     a = torch.exp(log_a)
     beta = torch.sqrt(torch.clamp_min(1.0 - torch.exp(2.0 * log_a), 1e-12))
@@ -51,8 +56,7 @@ def _conv(p, u):
     kw = w.shape[0]
     out = u * w[kw - 1]
     for i in range(1, kw):
-        shifted = F.pad(u, (0, 0, i, 0))[:, :-i]
-        out = out + shifted * w[kw - 1 - i]
+        out = out + delay(u, i) * w[kw - 1 - i]
     return out + p["conv_b"].to(u.dtype)
 
 
@@ -63,7 +67,7 @@ def linear_scan(a, b):
     t = a.shape[1]
     off = 1
     while off < t:
-        a_prev, b_prev = a[:, :-off], b[:, :-off]
+        a_prev, b_prev = a[:, :t - off], b[:, :t - off]
         b = torch.cat([b[:, :off], b_prev * a[:, off:] + b[:, off:]], dim=1)
         a = torch.cat([a[:, :off], a_prev * a[:, off:]], dim=1)
         off *= 2
@@ -77,12 +81,12 @@ def rglru_forward(p, x, cfg: ModelConfig, r: RGLRUConfig):
     gate = gelu(x @ p["w_gate_branch"].to(dt))
     ux = x @ p["w_x"].to(dt)
     w = r.conv_width
-    conv_tail = F.pad(ux, (0, 0, w - 1, 0))[:, -(w - 1):]
+    conv_tail = tail(ux, w - 1)
     u = _conv(p, ux)
     a, b = _gates(p, u)                                         # [B,T,dr] fp32
     h = linear_scan(a, b)
     y = (h.to(dt) * gate) @ p["w_out"].to(dt)
-    return y, h[:, -1], conv_tail
+    return y, h[:, h.shape[1] - 1], conv_tail
 
 
 def rglru_decode(p, x, state, conv_tail, cfg: ModelConfig, r: RGLRUConfig):

@@ -32,6 +32,8 @@ from typing import Any, Dict, Optional
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from ..parallel.sharding import (activation_rules, constrain, current_rules,
+                                 grad_as_placed, on_mesh, unshard)
 from .config import ModelConfig
 from .params import ParamBuilder, ParamTree, dtype_of, map_axes, tree_map
 from . import layers as L
@@ -177,13 +179,21 @@ def proj_heads(x, w):
 
 
 def merge_heads(o, w):
-    """``einsum("bthe,hed->btd")``: the output projection."""
+    """``einsum("bthe,hed->btd")``: the output projection. On a mesh it is
+    the same contraction over the flattened ``(h, e)`` dims: the einsum
+    flattens them as ``(e, h)``, which DTensor (torch 2.11) refuses when
+    the heads are split."""
+    if on_mesh(o):
+        return o.flatten(2) @ w.flatten(0, 1)
     return torch.einsum("bthe,hed->btd", o, w)
 
 
 def attn_full(p, cfg, x, positions, spec, cache=None, *, causal=True):
     """Self attention over a full sequence; optionally fills a cache."""
     dt = x.dtype
+    # gather the sequence-parallel residual once here (Megatron-SP style),
+    # not inside the attention chunk loops
+    x = constrain(x, ("batch", None, None))
     q = proj_heads(x, p["wq"].to(dt))
     k = proj_heads(x, p["wk"].to(dt))
     v = proj_heads(x, p["wv"].to(dt))
@@ -193,6 +203,8 @@ def attn_full(p, cfg, x, positions, spec, cache=None, *, causal=True):
     if spec.attn != "enc":
         q = L.rope(q, positions, cfg.rope_theta)
         k = L.rope(k, positions, cfg.rope_theta)
+    q = constrain(q, ("batch", None, "heads", None))
+    k = constrain(k, ("batch", None, "kv_heads", None))
     if spec.attn == "local" and cfg.local_window:
         out = L.local_attention(q, k, v, window=cfg.local_window,
                                 q_positions=positions, softcap=cfg.attn_softcap)
@@ -200,6 +212,7 @@ def attn_full(p, cfg, x, positions, spec, cache=None, *, causal=True):
         out = L.flash_attention(
             q, k, v, q_positions=positions, kv_positions=positions,
             causal=causal, softcap=cfg.attn_softcap)
+    out = constrain(out, ("batch", None, "heads", None))
     if cache is not None:
         _fill_kv_cache(cache, k, v, cfg, spec)
     return merge_heads(out, p["wo"].to(dt))
@@ -295,25 +308,38 @@ def _image_kv(p, cfg, image_embeds):
     return k, v
 
 
+def residual(x, y):
+    """``x + y``, the residual add of a block's output ``y``. On a mesh the
+    backward brings ``y``'s gradient to ``y``'s own placements first: the
+    residual stream is split on seq, and DTensor cannot flatten (batch,
+    seq) with seq split in the backward of the matmul that made ``y``."""
+    return x + grad_as_placed(y)
+
+
 def mlp_part(p, cfg, spec, x):
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if spec.mlp == "none":
         return x, aux
     h = L.rms_norm(x, p["ln2"], cfg.norm_eps)
     if spec.mlp == "moe":
-        y, aux = moe_apply(p["mlp"], h, cfg, cfg.moe)
+        y, aux = moe_apply(p["mlp"], constrain(h, ("batch", None, None)), cfg,
+                           cfg.moe)
     else:
-        y = L.mlp_apply(L.cast_weights(p["mlp"], x.dtype), h, cfg.act)
+        hh = constrain(h, ("batch", None, None))
+        y = L.mlp_apply(L.cast_weights(p["mlp"], x.dtype), hh, cfg.act)
     if cfg.post_norms:
         y = L.rms_norm(y, p["ln2_post"], cfg.norm_eps)
-    return x + y, aux
+    return residual(x, y), aux
 
 
 def block_apply_full(p, cfg: ModelConfig, spec: BlockSpec, x, positions,
                      cache=None, image_kv=None):
     """Train/prefill block. Returns (x, aux); a given cache is filled in
     place."""
-    h = L.rms_norm(x, p["ln1"], cfg.norm_eps)
+    # every block input meets a matmul, which flattens (batch, seq): the
+    # sequence-parallel residual is gathered here (DTensor cannot flatten
+    # an inner dim that is split)
+    h = constrain(L.rms_norm(x, p["ln1"], cfg.norm_eps), ("batch", None, None))
     if spec.attn in ("global", "local", "enc"):
         y = attn_full(p["attn"], cfg, h, positions, spec,
                       cache=cache, causal=(spec.attn != "enc"))
@@ -321,10 +347,12 @@ def block_apply_full(p, cfg: ModelConfig, spec: BlockSpec, x, positions,
         y = attn_full(p["attn"], cfg, h, positions, spec, cache=cache)
         if cfg.post_norms:
             y = L.rms_norm(y, p["ln1_post"], cfg.norm_eps)
-        x = x + y
-        hc = L.rms_norm(x, p["ln_cross"], cfg.norm_eps)
+        x = residual(x, y)
+        hc = constrain(L.rms_norm(x, p["ln_cross"], cfg.norm_eps),
+                       ("batch", None, None))
         yc = _cross_attn(p["cross"], cfg, hc, image_kv)
-        x = x + torch.tanh(p["cross"]["gate_attn"].to(x.dtype)) * yc
+        gate = torch.tanh(p["cross"]["gate_attn"].to(x.dtype))
+        x = residual(x, gate * yc)
         return mlp_part(p, cfg, spec, x)
     elif spec.attn == "mla":
         y, (ckv, kr) = mla_forward(p["attn"], h, positions, cfg, cfg.mla)
@@ -337,7 +365,8 @@ def block_apply_full(p, cfg: ModelConfig, spec: BlockSpec, x, positions,
         if cache is not None:
             cache["state"].copy_(state)
             cache["conv"].copy_(tail)
-        return x + y, torch.zeros((), dtype=torch.float32, device=x.device)
+        return residual(x, y), torch.zeros((), dtype=torch.float32,
+                                           device=x.device)
     elif spec.attn == "rec":
         y, state, tail = rglru_forward(p["attn"], h, cfg, cfg.rglru)
         if cache is not None:
@@ -347,7 +376,7 @@ def block_apply_full(p, cfg: ModelConfig, spec: BlockSpec, x, positions,
         raise ValueError(spec.attn)
     if cfg.post_norms:
         y = L.rms_norm(y, p["ln1_post"], cfg.norm_eps)
-    return mlp_part(p, cfg, spec, x + y)
+    return mlp_part(p, cfg, spec, residual(x, y))
 
 
 def block_apply_decode(p, cfg: ModelConfig, spec: BlockSpec, x, cache, cur_len,
@@ -487,16 +516,18 @@ def group_view(tree, g: int):
 def embed_tokens(cfg, params, tokens):
     # gather, then cast: elementwise, so equal to the reference's
     # cast-then-gather bit for bit, without casting the whole table
-    x = params["embed"][tokens].to(dtype_of(cfg.dtype))
+    x = L.lookup(params["embed"], tokens).to(dtype_of(cfg.dtype))
     if cfg.emb_scale:
         x = x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype, device=x.device)
     return x
 
 
 def _logits(cfg, params, x):
-    x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
+    x = constrain(L.rms_norm(x, params["final_norm"], cfg.norm_eps),
+                  ("batch", None, None))
     head = (params["embed"].T if cfg.tie_embeddings else params["lm_head"])
     logits = x @ head.to(x.dtype)
+    logits = constrain(logits, ("batch", None, "vocab"))
     if cfg.logit_softcap:
         logits = torch.tanh(logits / cfg.logit_softcap) * cfg.logit_softcap
     return logits
@@ -506,9 +537,16 @@ def remat_body(cfg: ModelConfig, body, caches=None):
     """``body`` under a non-reentrant ``torch.utils.checkpoint`` (kept
     inputs only, the body recomputed in the backward pass) when
     ``cfg.remat`` is set, autograd records and no caches are filled;
-    else ``body`` itself."""
+    else ``body`` itself. The recompute runs in autograd's thread (its
+    device thread on the card), so the sharding rules active now are
+    re-entered there: the recomputed forward takes the same path."""
     if cfg.remat and caches is None and torch.is_grad_enabled():
-        return functools.partial(checkpoint, body, use_reentrant=False)
+        rules = current_rules()
+
+        def under_rules(*args, **kwargs):
+            with activation_rules(rules):
+                return body(*args, **kwargs)
+        return functools.partial(checkpoint, under_rules, use_reentrant=False)
     return body
 
 
@@ -520,6 +558,7 @@ def forward(cfg: ModelConfig, params, tokens, *, image_embeds=None,
     t = tokens.shape[1]
     positions = torch.arange(t, dtype=torch.int32, device=tokens.device)
     x = embed_tokens(cfg, params, tokens)
+    x = constrain(x, ("batch", "seq", None))
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     if cfg.family == "vlm":
         image_embeds = image_embeds.to(x.dtype)
@@ -545,6 +584,7 @@ def forward(cfg: ModelConfig, params, tokens, *, image_embeds=None,
                     cj["img_v"].copy_(ikv[1])
             else:
                 x, aux = block_apply_full(pj, cfg, spec, x, positions, cache=cj)
+            x = constrain(x, ("batch", "seq", None))
             auxg = auxg + aux
         return x, auxg
 
@@ -579,7 +619,8 @@ def chunked_xent(logits, labels, t_chunk: int = 512):
     for s in range(0, t, tc):
         lg32 = logits[:, s:s + tc].float()
         logz = torch.logsumexp(lg32, dim=-1)
-        gold = torch.gather(lg32, -1, labels[:, s:s + tc, None].long())[..., 0]
+        gold = torch.gather(unshard(lg32, -1), -1,
+                            labels[:, s:s + tc, None].long())[..., 0]
         total = total + (logz - gold).sum()
     return total / (b * t)
 

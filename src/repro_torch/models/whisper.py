@@ -23,12 +23,14 @@ from typing import Optional
 
 import torch
 
+from ..parallel.sharding import constrain
 from .config import ModelConfig
 from .params import ParamBuilder, ParamTree, dtype_of
 from . import layers as L
 from .transformer import (
     BlockSpec, attn_init, attn_full, attn_decode, mlp_part, block_init,
-    group_view, merge_heads, proj_heads, remat_body, stack_spec, _meta,
+    group_view, merge_heads, proj_heads, remat_body, residual, stack_spec,
+    _meta,
 )
 
 _SELF = BlockSpec("enc", "dense")        # non-causal, no rope
@@ -94,17 +96,21 @@ def encode(cfg: ModelConfig, params, frames):
     """frames: [B, enc_seq, d_model] (conv-stub output) -> [B, enc_seq, d]."""
     x = frames.to(dtype_of(cfg.dtype))
     x = x + _sinusoid(x.shape[1], cfg.d_model, x.dtype, x.device)[None]
+    x = constrain(x, ("batch", "seq", None))
     positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
     body = remat_body(cfg, _apply_enc)
     for gp in params["enc_blocks"]:
-        x = body(gp["b0"], cfg, x, positions)
-    return L.rms_norm(x, params["enc_norm"], cfg.norm_eps)
+        x = constrain(body(gp["b0"], cfg, x, positions),
+                      ("batch", "seq", None))
+    # the decoder's cross projections flatten (batch, seq): gathered once
+    return constrain(L.rms_norm(x, params["enc_norm"], cfg.norm_eps),
+                     ("batch", None, None))
 
 
 def _apply_enc(p, cfg, x, positions):
     h = L.rms_norm(x, p["ln1"], cfg.norm_eps)
     y = attn_full(p["attn"], cfg, h, positions, _SELF, causal=False)
-    x = x + y
+    x = residual(x, y)
     out, _ = mlp_part(p, cfg, _SELF, x)
     return out
 
@@ -113,8 +119,9 @@ def _apply_dec(p, cfg, x, positions, enc_out, cache=None):
     h = L.rms_norm(x, p["ln1"], cfg.norm_eps)
     y = attn_full(p["attn"], cfg, h, positions, _DEC_SELF,
                   cache=cache["self"] if cache else None)
-    x = x + y
-    hc = L.rms_norm(x, p["ln_cross"], cfg.norm_eps)
+    x = residual(x, y)
+    hc = constrain(L.rms_norm(x, p["ln_cross"], cfg.norm_eps),
+                   ("batch", None, None))
     dt = x.dtype
     q = proj_heads(hc, p["cross"]["wq"].to(dt))
     k = proj_heads(enc_out, p["cross"]["wk"].to(dt))
@@ -124,7 +131,7 @@ def _apply_dec(p, cfg, x, positions, enc_out, cache=None):
         kv_positions=torch.zeros((k.shape[1],), dtype=torch.int32,
                                  device=x.device),
         causal=False)
-    x = x + merge_heads(yc, p["cross"]["wo"].to(dt))
+    x = residual(x, merge_heads(yc, p["cross"]["wo"].to(dt)))
     out, _ = mlp_part(p, cfg, _DEC_SELF, x)
     if cache is not None:
         cache["cross_k"].copy_(k)
@@ -133,7 +140,7 @@ def _apply_dec(p, cfg, x, positions, enc_out, cache=None):
 
 
 def _embed_dec(cfg, params, tokens, dt):
-    x = params["embed"][tokens].to(dt)
+    x = L.lookup(params["embed"], tokens).to(dt)
     # match the d^-1/2 embed init
     return x * torch.tensor(cfg.d_model ** 0.5, dtype=dt, device=x.device)
 
@@ -146,13 +153,17 @@ def forward(cfg: ModelConfig, params, tokens, frames, caches=None):
     positions = torch.arange(t, dtype=torch.int32, device=tokens.device)
     x = _embed_dec(cfg, params, tokens, dtype_of(cfg.dtype))
     x = x + _sinusoid(t, cfg.d_model, x.dtype, x.device)[None]
+    x = constrain(x, ("batch", "seq", None))
     body = remat_body(cfg, _apply_dec, caches)
     for g, gp in enumerate(params["dec_blocks"]):
         gc = group_view(caches["blocks"], g) if caches is not None else None
         x = body(gp["b0"], cfg, x, positions, enc_out,
                  cache=gc["b0"] if gc else None)
-    x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
+        x = constrain(x, ("batch", "seq", None))
+    x = constrain(L.rms_norm(x, params["final_norm"], cfg.norm_eps),
+                  ("batch", None, None))
     logits = x @ params["embed"].T.to(x.dtype)
+    logits = constrain(logits, ("batch", None, "vocab"))
     new_caches = None
     if caches is not None:
         new_caches = dict(caches, cur_len=torch.full(

@@ -1,9 +1,10 @@
-"""repro_torch.parallel — wire codecs for the distributed layers.
+"""repro_torch.parallel — wire codecs and sharding rules.
 
-Only the compression codecs are ported: the boundary-halo bit-packing the
-distributed coloring wire uses, and the int8 stochastic-rounding psum.
-The reference's ``parallel/sharding.py`` (logical-axis sharding rules of
-the LM substrate) waits for the LM port (ROADMAP A15).
+``compression``: the boundary-halo bit-packing the distributed coloring
+wire uses, and the int8 stochastic-rounding psum. ``sharding``: the
+logical-axis sharding rules of the LM lane (``Rules``, ``spec_for_array``,
+``constrain``), which place its params and activations on a
+``DeviceMesh`` as DTensors.
 """
 from .compression import (compressed_psum, halo_bits, halo_bytes,
                           halo_words, pack_halo, unpack_halo)

@@ -31,9 +31,15 @@ Two readers: :func:`restore` fills the structure of a prototype tree (a
 trainer's params and optimizer state) with tensors on each prototype
 leaf's device; :func:`load` rebuilds a nested dict from the paths alone
 (the coloring service; a checkpoint of the reference's trainer, whose
-layout ``repro_torch.convert`` maps onto the port's). Restoring onto
-another device layout (the reference's ``restore(shardings=)``) comes with
-the sharded trainer.
+layout ``repro_torch.convert`` maps onto the port's).
+
+On a mesh (a tree with ``DTensor`` leaves) :func:`save` is a collective:
+every rank calls it, each leaf's shards are gathered to rank 0 alone, and
+rank 0 alone writes, so the files equal a one-device save of the same
+values byte for byte. ``restore(shardings=, mesh=)`` puts each restored leaf onto
+the given placements of ``mesh`` (the reference's elastic restart onto
+another mesh shape); without them the leaves come back whole on the
+prototype's device, which restarts a sharded run on one device.
 """
 from __future__ import annotations
 
@@ -46,6 +52,8 @@ from typing import Optional
 
 import numpy as np
 import torch
+
+from ..parallel.sharding import on_mesh
 
 _SEP = "/"
 
@@ -77,6 +85,56 @@ def _host(x, copy: bool):
     return a, str(a.dtype)
 
 
+def _block(shape, mesh_shape, placements, coord) -> tuple:
+    """The slices of a global tensor of ``shape`` that the rank at mesh
+    coordinate ``coord`` holds under ``placements`` (``Shard`` splits as
+    ``torch.chunk`` does, nested in mesh-dim order; ``Replicate`` keeps the
+    whole dim)."""
+    lo, hi = [0] * len(shape), list(shape)
+    for mdim, p in enumerate(placements):
+        if p.is_shard():
+            d, k = p.dim, mesh_shape[mdim]
+            step = -(-(hi[d] - lo[d]) // k)
+            lo[d], hi[d] = (min(lo[d] + coord[mdim] * step, hi[d]),
+                            min(lo[d] + (coord[mdim] + 1) * step, hi[d]))
+        elif not p.is_replicate():
+            raise ValueError(f"a checkpoint leaf placed {placements}: only "
+                             f"Shard and Replicate are held at rest")
+    return tuple(slice(a, b) for a, b in zip(lo, hi))
+
+
+def _gathered_to_rank0(x):
+    """A ``DTensor``'s global value as a plain tensor on rank 0, ``None`` on
+    the other ranks (every rank of its mesh calls it; the mesh spans the
+    process group): each rank's shard goes to rank 0 alone, padded to the
+    largest shard's size, and rank 0 puts each at its place."""
+    import torch.distributed as dist
+    mesh = x.device_mesh
+    ranks = mesh.mesh.flatten().tolist()
+    if sorted(ranks) != list(range(dist.get_world_size())):
+        raise ValueError("a checkpoint of DTensor leaves needs a mesh over "
+                         "the whole process group")
+    mshape = tuple(mesh.shape)
+    blocks = {r: _block(x.shape, mshape, x.placements,
+                        np.unravel_index(i, mshape))
+              for i, r in enumerate(ranks)}
+    sizes = {r: int(np.prod([b.stop - b.start for b in blk]))
+             for r, blk in blocks.items()}
+    n = max(sizes.values())
+    mine = x.to_local().reshape(-1)
+    sent = torch.zeros(n, dtype=x.dtype, device=mine.device)
+    sent[:mine.numel()] = mine
+    if dist.get_rank() != 0:
+        dist.gather(sent, None, dst=0)
+        return None
+    got = [torch.empty_like(sent) for _ in range(dist.get_world_size())]
+    dist.gather(sent, got, dst=0)
+    out = torch.empty(x.shape, dtype=x.dtype, device=mine.device)
+    for r, blk in blocks.items():
+        out[blk] = got[r][:sizes[r]].view(out[blk].shape)
+    return out
+
+
 def _stored_as(arr: np.ndarray, dtype: str):
     """A stored leaf in its manifest dtype: numpy, except bf16, which comes
     back as a ``torch.bfloat16`` tensor."""
@@ -91,9 +149,15 @@ def _stored_as(arr: np.ndarray, dtype: str):
 def _digest(flat: dict) -> str:
     digest = hashlib.sha256()
     for k in sorted(flat):
-        digest.update(k.encode())
-        digest.update(flat[k].tobytes())
+        _hash_leaf(digest, k, flat[k])
     return digest.hexdigest()
+
+
+def _hash_leaf(digest, path: str, arr: np.ndarray):
+    """The checksum's bytes of one leaf: its path, then its C-order bytes
+    (hashed in place, not copied)."""
+    digest.update(path.encode())
+    digest.update(np.ascontiguousarray(arr).reshape(-1).view(np.uint8))
 
 
 def step_dir(root: str, step: int) -> str:
@@ -110,16 +174,27 @@ def save(root: str, step: int, tree, *, keep: int = 3,
     With ``async_write`` the leaves are copied to the host before this
     returns, the files are written by a daemon thread, and the thread is
     returned (join it before relying on the files); otherwise the write is
-    done on return and the result is ``None``."""
+    done on return and the result is ``None``. With DTensor leaves every
+    rank calls this, and only rank 0 writes (the others return ``None``)."""
     os.makedirs(root, exist_ok=True)
     flat = _flatten(tree)
     bad = [k for k in flat if "__" in k]
     if bad:
         raise ValueError(f"checkpoint keys must not contain '__' (the npz "
                          f"path encoding): {bad[:3]}")
+    writer = True
+    if any(on_mesh(x) for x in flat.values()):
+        import torch.distributed as dist
+        writer = dist.get_rank() == 0
     host, dtypes = {}, {}
     for k, v in flat.items():
-        host[k], dtypes[k] = _host(v, copy=async_write)
+        gathered = on_mesh(v)
+        if gathered:
+            v = _gathered_to_rank0(v.detach())      # a collective
+        if writer:     # a gathered leaf is a fresh tensor: no second copy
+            host[k], dtypes[k] = _host(v, copy=async_write and not gathered)
+    if not writer:
+        return None
 
     def write():
         tmp = step_dir(root, step) + ".tmp"
@@ -191,10 +266,9 @@ def latest_step(root: str) -> Optional[int]:
     return steps[-1] if steps else None
 
 
-def _load_flat(root: str, step: Optional[int], verify: bool):
-    """The flat ``{path: leaf}`` of a checkpoint (``step=None`` takes
-    ``LATEST``), checksum-verified, each leaf in its manifest dtype;
-    returns ``(flat, manifest, step)``."""
+def _open(root: str, step: Optional[int]):
+    """``(step dir, manifest, step)`` of a checkpoint (``step=None`` takes
+    ``LATEST``)."""
     if step is None:
         step = latest_step(root)
         if step is None:
@@ -202,38 +276,94 @@ def _load_flat(root: str, step: Optional[int], verify: bool):
     d = step_dir(root, step)
     with open(os.path.join(d, "manifest.json")) as f:
         manifest = json.load(f)
+    return d, manifest, step
+
+
+def _leaves(d: str, manifest: dict, verify: bool):
+    """``(path, leaf)`` of a checkpoint, one leaf in memory at a time, in
+    path order, each leaf in its manifest dtype. With ``verify`` it raises
+    after the last leaf if the checksum differs, so a caller that consumes
+    every leaf never returns a corrupted one."""
+    digest = hashlib.sha256()
+    dtypes = manifest.get("dtypes", {})
     with np.load(os.path.join(d, "arrays.npz")) as npz:
-        flat = {k.replace("__", "/"): npz[k] for k in npz.files}
-    if verify and _digest(flat) != manifest["checksum"]:
+        for name in sorted(npz.files, key=lambda k: k.replace("__", "/")):
+            path = name.replace("__", "/")
+            arr = npz[name]
+            if verify:
+                _hash_leaf(digest, path, arr)
+            if path in dtypes:
+                try:
+                    arr = _stored_as(arr, dtypes[path])
+                except ValueError as e:
+                    raise ValueError(f"checkpoint {d}: {path}: {e}") from None
+            yield path, arr
+    if verify and digest.hexdigest() != manifest["checksum"]:
         raise IOError(f"checkpoint {d} failed checksum verification")
-    for k, dt in manifest.get("dtypes", {}).items():
-        if k in flat:
-            try:
-                flat[k] = _stored_as(flat[k], dt)
-            except ValueError as e:
-                raise ValueError(f"checkpoint {d}: {k}: {e}") from None
-    return flat, manifest, step
 
 
-def _as_proto(path: str, leaf, proto):
+def _load_flat(root: str, step: Optional[int], verify: bool):
+    """The flat ``{path: leaf}`` of a checkpoint (``step=None`` takes
+    ``LATEST``), checksum-verified, each leaf in its manifest dtype;
+    returns ``(flat, manifest, step)``."""
+    d, manifest, step = _open(root, step)
+    return dict(_leaves(d, manifest, verify)), manifest, step
+
+
+def _as_proto(path: str, leaf, proto, where, mesh):
     if not isinstance(proto, torch.Tensor):
         return leaf
     t = leaf if isinstance(leaf, torch.Tensor) else torch.from_numpy(leaf)
     if tuple(t.shape) != tuple(proto.shape):
         raise ValueError(f"checkpoint leaf {path} has shape "
                          f"{tuple(t.shape)}, the prototype {tuple(proto.shape)}")
-    return t.to(device=proto.device, dtype=proto.dtype)
+    t = t.to(device=proto.device, dtype=proto.dtype)
+    if where is None:
+        return t
+    from torch.distributed.tensor import distribute_tensor
+    return distribute_tensor(t, mesh, list(where), src_data_rank=None)
 
 
 def restore(root: str, proto, *, step: Optional[int] = None,
-            verify: bool = True):
+            shardings=None, mesh=None, verify: bool = True):
     """Load a checkpoint into the structure of ``proto`` (nested dicts and
     lists) and return ``(tree, step)``; ``step=None`` takes ``LATEST``.
     Where the prototype leaf is a tensor, the restored leaf is a new tensor
     on its device and in its dtype (its shape must match); other leaves
-    come back as :func:`load` gives them. The reference's ``shardings=``
-    (re-sharding onto the current mesh) comes with the sharded trainer."""
-    flat, _, step = _load_flat(root, step, verify)
+    come back as :func:`load` gives them.
+
+    ``shardings`` (with ``mesh``, a ``DeviceMesh``): a tree matching
+    ``proto`` whose leaves are DTensor placements on ``mesh``
+    (``launch.specs.tree_shardings``), or ``None`` for a leaf kept whole;
+    each placed leaf comes back as a DTensor holding this rank's shard (the
+    reference's elastic restart onto the current mesh). Every rank reads
+    the whole file, one leaf at a time, and keeps its shards; nothing
+    crosses the wire."""
+    if shardings is not None and mesh is None:
+        raise ValueError("restore(shardings=) needs the mesh they are on")
+    d, manifest, step = _open(root, step)
+    wanted = {}
+
+    def walk(sub, where, prefix=""):
+        if isinstance(sub, dict):
+            for k, v in sub.items():
+                walk(v, None if where is None else where[k],
+                     f"{prefix}{k}{_SEP}")
+        elif isinstance(sub, (list, tuple)):
+            for i, v in enumerate(sub):
+                walk(v, None if where is None else where[i],
+                     f"{prefix}{i}{_SEP}")
+        else:
+            wanted[prefix[:-1]] = (sub, where)
+
+    walk(proto, shardings)
+    placed = {}
+    for path, leaf in _leaves(d, manifest, verify):
+        if path in wanted:
+            placed[path] = _as_proto(path, leaf, *wanted[path], mesh)
+    missing = sorted(set(wanted) - set(placed))
+    if missing:
+        raise KeyError(f"checkpoint under {root} has no leaf {missing[0]}")
 
     def build(sub, prefix=""):
         if isinstance(sub, dict):
@@ -241,10 +371,7 @@ def restore(root: str, proto, *, step: Optional[int] = None,
         if isinstance(sub, (list, tuple)):
             return type(sub)(build(v, f"{prefix}{i}{_SEP}")
                              for i, v in enumerate(sub))
-        path = prefix[:-1]
-        if path not in flat:
-            raise KeyError(f"checkpoint under {root} has no leaf {path}")
-        return _as_proto(path, flat[path], sub)
+        return placed[prefix[:-1]]
 
     return build(proto), step
 

@@ -11,6 +11,13 @@ them). :func:`adamw_update` updates the params and the state **in place**,
 leaf by leaf, so its temporaries never exceed a few copies of one leaf; a
 parameter with no gradient (``None``) counts as a zero gradient, so it
 still decays.
+
+On a mesh the params are DTensors (``launch.specs.device_put``), the
+moments are placed as their params are, and ``step`` stays a plain tensor
+that every rank holds alike (as do ``lr`` and ``skip``): a gradient is
+first brought to its param's placements (a ``Partial`` one is
+reduce-scattered, FSDP's reduction), the norm is taken over all shards,
+and the update runs on each rank's local shards.
 """
 from __future__ import annotations
 
@@ -22,6 +29,7 @@ import torch
 from torch import nn
 
 from ..models.params import dtype_of
+from ..parallel.sharding import local, redistribute, whole
 
 
 @dataclasses.dataclass(frozen=True)
@@ -45,28 +53,32 @@ def named_params(params) -> Dict[str, torch.Tensor]:
     return dict(params)
 
 
-def _state(params, cfg: AdamWConfig, make):
+def _state(params, cfg: AdamWConfig, moment, make):
     mdt = dtype_of(cfg.moment_dtype)
     named = named_params(params)
     dev = next(iter(named.values())).device if named else torch.device("cpu")
     return {
-        "m": {n: make(p.shape, mdt, p.device) for n, p in named.items()},
-        "v": {n: make(p.shape, mdt, p.device) for n, p in named.items()},
+        "m": {n: moment(p, mdt) for n, p in named.items()},
+        "v": {n: moment(p, mdt) for n, p in named.items()},
         "step": make((), torch.int32, dev),
     }
 
 
 def init_opt_state(params, cfg: AdamWConfig):
-    """Zero moments in ``moment_dtype`` on each parameter's device."""
-    return _state(params, cfg, lambda s, dt, dev: torch.zeros(
-        s, dtype=dt, device=dev))
+    """Zero moments in ``moment_dtype``, each placed as its parameter is
+    (its device; on a mesh, its DTensor placements)."""
+    return _state(params, cfg,
+                  lambda p, dt: torch.zeros_like(p, dtype=dt,
+                                                 requires_grad=False),
+                  lambda s, dt, dev: torch.zeros(s, dtype=dt, device=dev))
 
 
 def abstract_opt_state(params, cfg: AdamWConfig):
     """The state's shapes and dtypes as meta tensors (no allocation);
     ``params`` may itself live on the meta device."""
-    return _state(params, cfg, lambda s, dt, dev: torch.empty(
-        s, dtype=dt, device="meta"))
+    def make(s, dt, dev):
+        return torch.empty(s, dtype=dt, device="meta")
+    return _state(params, cfg, lambda p, dt: make(p.shape, dt, None), make)
 
 
 def schedule(cfg: AdamWConfig, step):
@@ -81,11 +93,21 @@ def schedule(cfg: AdamWConfig, step):
 
 
 def global_norm(tensors) -> torch.Tensor:
-    """fp32 L2 norm over the tensors (``None`` entries count as zeros)."""
+    """fp32 L2 norm over the tensors (``None`` entries count as zeros); a
+    plain 0-d tensor, over every shard of DTensor entries."""
     sq = [torch.sum(torch.square(t.float())) for t in tensors if t is not None]
     if not sq:
         return torch.zeros(())
-    return torch.sqrt(sum(sq))
+    return whole(torch.sqrt(sum(sq)))
+
+
+def _placed_as(g, p):
+    """Gradient ``g`` on its param's placements (``None`` stays)."""
+    from torch.distributed.tensor import DTensor
+    if g is None or not isinstance(p, DTensor):
+        return g
+    return redistribute(g, p.placements)
+
 
 
 @torch.no_grad()
@@ -98,10 +120,11 @@ def adamw_update(cfg: AdamWConfig, grads: Mapping[str, Optional[torch.Tensor]],
     same objects, updated, and ``{"lr", "grad_norm", "skipped"}`` as 0-d
     device tensors."""
     named = named_params(params)
+    grads = {n: _placed_as(grads.get(n), p) for n, p in named.items()}
     step = state["step"]
     dev = step.device
     lr = schedule(cfg, step)
-    gnorm = global_norm(grads.get(n) for n in named).to(dev)
+    gnorm = global_norm(grads[n] for n in named).to(dev)
     scale = (torch.clamp(cfg.grad_clip / torch.clamp(gnorm, min=1e-9), max=1.0)
              if cfg.grad_clip else torch.ones((), device=dev))
     skip = (torch.zeros((), dtype=torch.bool, device=dev) if skip is None
@@ -111,7 +134,8 @@ def adamw_update(cfg: AdamWConfig, grads: Mapping[str, Optional[torch.Tensor]],
     bc1 = 1.0 - cfg.b1 ** t
     bc2 = 1.0 - cfg.b2 ** t
     for name, p in named.items():
-        g, m, v = grads.get(name), state["m"][name], state["v"][name]
+        p, g, m, v = (local(t) for t in (p, grads[name], state["m"][name],
+                                          state["v"][name]))
         # jnp.where-style selects (never an arithmetic blend: 0 * NaN would
         # poison the params); fresh fp32 temporaries, updated in place
         g32 = (torch.zeros(p.shape, dtype=torch.float32, device=p.device)

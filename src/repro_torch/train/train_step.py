@@ -1,15 +1,24 @@
 """The train step (the port of ``repro.train.train_step``): loss ->
 backward -> clip -> AdamW, with optional microbatch gradient accumulation
-and NaN-step rejection, on one device.
+and NaN-step rejection.
+
+The same step runs on one device (plain tensors) and on a mesh, where the
+params and the batch are DTensors (``launch.train.build(mesh=)`` sets up
+the rules context and the batch's split); there microbatch ``i`` is the
+``i``-th block of the global rows, split on ``"batch"`` as the whole batch
+was (the reference's reshape of the global batch), and the metrics come
+back as plain tensors that every rank holds alike.
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 
 import torch
 
 from .. import models
 from ..models.params import cast_params
+from ..parallel.sharding import whole
 from .optimizer import AdamWConfig, adamw_update
 
 
@@ -50,12 +59,7 @@ def make_train_step(model_cfg, opt_cfg: AdamWConfig,
         if n == 1:
             mbs = [batch]
         else:
-            for k, x in batch.items():
-                if x.shape[0] % n:
-                    raise ValueError(f"batch {k} of {x.shape[0]} rows does "
-                                     f"not split into {n} microbatches")
-            mbs = [{k: x.reshape(n, x.shape[0] // n, *x.shape[1:])[i]
-                    for k, x in batch.items()} for i in range(n)]
+            mbs = _microbatches(batch, n)
         loss_sum = None
         for mb in mbs:
             loss, metrics = loss_for(params, mb)
@@ -68,14 +72,44 @@ def make_train_step(model_cfg, opt_cfg: AdamWConfig,
                 for p in named.values():
                     if p.grad is not None:
                         p.grad.div_(n)
-        loss = loss_sum / n if n > 1 else loss_sum
+        loss = whole(loss_sum / n if n > 1 else loss_sum)
         grads = {k: p.grad for k, p in named.items()}
         _, _, opt_metrics = adamw_update(opt_cfg, grads, params, opt_state,
                                          skip=~torch.isfinite(loss))
         for p in named.values():
             p.grad = None
-        out = {"loss": loss, **{k: v.detach() for k, v in metrics.items()},
+        out = {"loss": loss,
+               **{k: whole(v.detach()) for k, v in metrics.items()},
                **opt_metrics}
         return params, opt_state, out
 
     return train_step
+
+
+def _microbatches(batch, n: int) -> list:
+    """The ``n`` microbatches of a batch: microbatch ``i`` holds the
+    ``i``-th of ``n`` equal blocks of the global rows. A DTensor leaf is
+    gathered whole once (the batch is token ids and inputs, small beside
+    the step's other traffic) and each block is split again on the leaf's
+    own placements, so every rank keeps its share of every microbatch."""
+    from torch.distributed.tensor import DTensor, distribute_tensor
+    out = [{} for _ in range(n)]
+    for k, x in batch.items():
+        rows = x.shape[0]
+        split = 1
+        if isinstance(x, DTensor):
+            split = math.prod(x.device_mesh.size(d) for d, p in
+                              enumerate(x.placements)
+                              if p.is_shard() and p.dim == 0)
+        if rows % (n * split):
+            raise ValueError(f"batch {k} of {rows} rows does not split into "
+                             f"{n} microbatches of whole shards over the "
+                             f"{split} ranks its rows are split over")
+        full = whole(x)
+        blocks = full.reshape(n, rows // n, *full.shape[1:])
+        for i in range(n):
+            out[i][k] = (blocks[i] if not isinstance(x, DTensor) else
+                         distribute_tensor(blocks[i], x.device_mesh,
+                                           list(x.placements),
+                                           src_data_rank=None))
+    return out
