@@ -5,7 +5,7 @@ is right on an NVIDIA card. Run from the repository root:
     python3 chip_smoke.py
 
 Phases, each printing its own lines; any failure raises and exits non-zero.
-They run in the order 1-4, 6-13, 5: the timings come last, on the slabs the
+They run in the order 1-4, 6-14, 5: the timings come last, on the slabs the
 other phases colored.
 
 1. build    — compile the CUDA kernels from ``src/repro_torch/kernels/csrc``
@@ -114,10 +114,28 @@ other phases colored.
               collectives by kind, count and bytes; (c) at the smoke
               config, a checkpoint of a 2 x 2 run restored onto (4, 1)
               with ``restore(shardings=)`` and onto the card, each next
-              step held to the 2 x 2 run's. Each of its five ranks
+              step held to the 2 x 2 run's; (e) ROADMAP C11: mamba2-130m's
+              float32 step on the 2 x 2 CPU mesh, each rank's shards held
+              to the one-device step in float64. Each of its five ranks
               counts its own kernel launches from 0; the phase reports
               their sum, which is 0: the lane launches none of the
-              kernels.
+              kernels;
+14. dryrun  — the multi-pod dry run (``python -m repro_torch.launch.dryrun``'s
+              ``run_cell``) in worker processes side by side, one fake
+              process group each: (a) on the production meshes, fake CUDA
+              tensors, full configs: qwen3-4b x {train_4k, prefill_32k,
+              decode_32k}, mamba2-130m x {train_4k, long_500k},
+              deepseek-v2-lite-16b train_4k on (16, 16), and the
+              rmat-coloring cell on (16, 16) and (2, 16, 16): per cell the
+              trace seconds, per-rank argument and peak bytes against
+              80 GB, FLOPs, collectives by kind and the dominant term; (b)
+              the dry run of phase 13's two cells held to what phase 13
+              measured in this run: the 2 x 2 CPU cell's rank-0
+              collectives (kind, count, result and sent bytes) and held
+              bytes exactly, the 1 x 1 card cell's held bytes and local
+              matmul FLOPs exactly, its predicted peak printed beside the
+              measured ``max_memory_allocated``. The workers launch no
+              kernel (their counts are summed: 0).
 
 Ends with a ``{"kernels": [...]}`` line, the card's name and power limit,
 and the result line ``{"ok": true, "device": {...}}``. Imports no JAX and
@@ -128,6 +146,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -180,6 +199,19 @@ SHARDED_LAYERS = 2
 SHARDED_CARD = (4, 512, 3)  # batch, seq, steps on the 1 x 1 NCCL mesh
 SHARDED_CPU = (2, 32)       # batch, seq on the 2 x 2 mesh of CPU ranks
 SHARDED_TIMEOUT_S = 300
+C11_BATCH = (4, 16)         # mamba2's 2 x 2 step: tests/test_torch_train_sharded
+# phase 14: the dry run's cells on the production meshes (fake CUDA
+# tensors, full configs), each worker a process of its own (one fake
+# process group per mesh), the workers run side by side
+DRYRUN_WORKERS = [
+    [("qwen3-4b", "train_4k", False)],
+    [("qwen3-4b", "prefill_32k", False), ("qwen3-4b", "decode_32k", False)],
+    [("mamba2-130m", "train_4k", False), ("mamba2-130m", "long_500k", False)],
+    [("deepseek-v2-lite-16b", "train_4k", False)],
+    [("rmat-coloring", "coloring", False), ("rmat-coloring", "coloring", True)],
+]
+DRYRUN_TIMEOUT_S = 420
+
 SHARDED_ROUTE = (
     "NCCL refuses two ranks on one card, and gloo cannot carry DTensor's "
     "collectives on CUDA tensors under torch 2.11.0+cu128: its functional "
@@ -204,6 +236,11 @@ LM_REPORTED = {
 # cache_attention does not (as in the reference, ROADMAP C9): whisper is
 # held with one key chunk over all its keys, its error as configured printed
 LM_ONE_KV_CHUNK = ("whisper-medium",)
+
+
+def torch_version() -> str:
+    import torch
+    return torch.__version__
 
 
 def log(*args):
@@ -1702,31 +1739,73 @@ def _held_bytes(params, state) -> tuple:
 
 
 def _collectives(fn) -> dict:
-    """The collectives ``fn`` issues on this rank: ``{kind: [count, bytes
-    sent]}`` (``CommDebugMode`` counts them; the bytes are each call's
-    input tensor)."""
-    import collections
-    import torch
-    from torch.distributed.tensor.debug import CommDebugMode
-    from torch.utils._python_dispatch import TorchDispatchMode
+    """What ``fn`` runs on this rank, counted by the dry run's counter
+    (``launch.hlo_analysis.count_ops``: local ops, under DTensor):
+    ``{"comm": {kind: [count, result bytes, bytes sent]}, "flops": local
+    matmul FLOPs}``. Result bytes are the reference's convention (an
+    all-gather counts the gathered tensor); bytes sent are each call's
+    input, what earlier runs of this phase printed."""
+    from repro_torch.launch.hlo_analysis import count_ops
+    with count_ops() as st:
+        fn()
+    comm = {k: [n, int(st.collective_bytes_by_kind[k]),
+                int(st.collective_sent_bytes_by_kind[k])]
+            for k, n in sorted(st.collective_counts.items()) if n}
+    return dict(comm=comm, flops=st.dot_flops)
 
-    class Sent(TorchDispatchMode):
+
+def _peak_split(fn, inputs) -> dict:
+    """Where the card's peak over one run of ``fn`` (a warm step) comes
+    from, three runs of it: the allocator's peak, allocated (each block
+    rounded up) and requested (the bytes asked for); the peak of the dry
+    run's memory tracker on these real tensors (``inputs`` held from the
+    start); and, op by op, the op during which the allocated peak falls and
+    what it allocates inside itself beyond its result (a workspace, a
+    temporary that no dispatched op returns), with the three largest such
+    in-op transients of the run."""
+    import torch
+    from torch.distributed.tensor import DTensor
+    from torch.utils._python_dispatch import TorchDispatchMode
+    from repro_torch.launch import dryrun as D
+    cuda = torch.cuda
+    cuda.synchronize()
+    cuda.reset_peak_memory_stats()
+    fn()
+    cuda.synchronize()
+    allocated = cuda.max_memory_allocated()
+    requested = cuda.memory_stats().get("requested_bytes.all.peak")
+    tracker = D._rank_mem_tracker()
+    tracker.track_external(*[t for tree in inputs for t in D._leaves(tree)])
+    with tracker:
+        fn()
+    tracked = sum(s.get("Total", 0) for s in
+                  tracker.get_tracker_snapshot("peak").values())
+
+    class InOp(TorchDispatchMode):
         def __init__(self):
             super().__init__()
-            self.bytes = collections.Counter()
+            self.top, self.inside = (0, "", 0, 0), []
 
         def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-            if func.namespace in ("_c10d_functional", "c10d"):
-                t = args[0][0] if isinstance(args[0], (list, tuple)) else args[0]
-                if isinstance(t, torch.Tensor):
-                    self.bytes[func.overloadpacket.__name__] += \
-                        t.numel() * t.element_size()
-            return func(*args, **(kwargs or {}))
+            if any(issubclass(t, DTensor) for t in types):
+                return NotImplemented
+            before = cuda.memory_allocated()
+            cuda.reset_peak_memory_stats()
+            out = func(*args, **(kwargs or {}))
+            high, after = cuda.max_memory_allocated(), cuda.memory_allocated()
+            inside = high - max(before, after)
+            if high > self.top[0]:
+                self.top = (high, str(func), before, inside)
+            self.inside = sorted(self.inside + [(inside, str(func))],
+                                 reverse=True)[:3]
+            return out
 
-    with CommDebugMode() as comm, Sent() as sent:
+    with InOp() as ops:
         fn()
-    counts = {k.__name__: v for k, v in comm.get_comm_counts().items()}
-    return {k: [n, sent.bytes.get(k, 0)] for k, n in sorted(counts.items())}
+    high, op, before, inside = ops.top
+    return dict(allocated=allocated, requested=requested, tracked=tracked,
+                op_peak=high, peak_op=op, before_op=before, inside_op=inside,
+                largest_inside=ops.inside)
 
 
 def sharded_card_rank(pmesh) -> dict:
@@ -1749,13 +1828,15 @@ def sharded_card_rank(pmesh) -> dict:
     params, state, step, _ = lt.build(cfg, opt_cfg, ts_cfg, device="cuda",
                                       mesh=mesh)
     nparams = sum(p.numel() for p in params.parameters())
-    _, m0 = step(params, state, lt.batch_on(dcfg, 0, "cuda"))[1:]
+    m0 = step(params, state, lt.batch_on(dcfg, 0, "cuda"))[2]
     got = {k: float(v) for k, v in m0.items()}
     snap = {name: (whole(p).detach().clone(), whole(state["m"][name]).clone(),
                    whole(state["v"][name]).clone())
             for name, p in params.named_parameters()}
     p1, s1, f1, _ = lt.build(cfg, opt_cfg, ts_cfg, device="cuda")
-    _, m1 = f1(p1, s1, lt.batch_on(dcfg, 0, "cuda"))[1:]
+    # the metrics only: a name left bound to the one-device state would
+    # keep its moments (two fp32 copies of the params) into the warm steps
+    m1 = f1(p1, s1, lt.batch_on(dcfg, 0, "cuda"))[2]
     want = {k: float(v) for k, v in m1.items()}
     bars = _StepBars(got, want, _gmax(s1))
     for name, q in p1.named_parameters():
@@ -1763,24 +1844,31 @@ def sharded_card_rank(pmesh) -> dict:
                   snap[name][2], s1["v"][name])
     del snap, p1, s1, f1
     torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
-    walls, losses = [], [got["loss"]]
+    walls, losses, steps_mem = [], [got["loss"]], []
     for s in range(1, n):
         batch = lt.batch_on(dcfg, s, "cuda")
         torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
         t0 = time.perf_counter()
         _, _, m = step(params, state, batch)
         torch.cuda.synchronize()
         walls.append(time.perf_counter() - t0)
         losses.append(float(m["loss"]))
-    peak = torch.cuda.max_memory_allocated()
-    comm = _collectives(lambda: step(params, state,
-                                     lt.batch_on(dcfg, n, "cuda")))
+        # (allocated before the step, the step's peak)
+        steps_mem.append((before, torch.cuda.max_memory_allocated()))
+    peak = max(high for _, high in steps_mem)
+    counted = _collectives(lambda: step(params, state,
+                                        lt.batch_on(dcfg, n, "cuda")))
     loc, tot = _held_bytes(params, state)
+    split = _peak_split(lambda: step(params, state,
+                                     lt.batch_on(dcfg, n + 1, "cuda")),
+                        (params, state))
     return dict(rank=pmesh.rank, backend=pmesh.backend, nparams=nparams,
                 bars=bars.text(), losses=losses, walls=walls,
                 p50=statistics.median(walls), peak=peak, local=loc,
-                whole=tot, comm=comm, tokens=b * t,
+                whole=tot, comm=counted["comm"], flops=counted["flops"],
+                split=split, steps_mem=steps_mem, tokens=b * t,
                 mesh=str(tuple(mesh.shape)), launches=launch_counts())
 
 
@@ -1847,6 +1935,42 @@ def _hold_shards(got, want, names) -> dict:
                 loose=bars.loose, total=bars.total)
 
 
+def _c11_hold(mesh) -> dict:
+    """ROADMAP C11: mamba2-130m (smoke config) takes one float32 step on
+    ``mesh`` (2 x 2, CPU ranks); the gated norm's backward raised there
+    under torch 2.11 before it was given whole rows. This rank's shards are
+    held, under the step bars, against the same blocks of the one-device
+    step computed in float64 from the same seed-0 weights on the same
+    batch (the step's exact value: the mesh's float32 step and the
+    one-device float32 step each differ from it by reduction order, and
+    from each other by up to the sum). The one-device float32 step's
+    grad_norm is reported beside it."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch import train as lt
+    from repro_torch.models import ShapeConfig
+    from repro_torch.train import AdamWConfig, TrainStepConfig, data
+    b, t = C11_BATCH
+    opt_cfg, ts_cfg = AdamWConfig(), TrainStepConfig()
+    steps = {}
+    for dt in ("float32", "float64"):
+        cfg = dataclasses.replace(get_smoke_config("mamba2-130m"), dtype=dt)
+        dcfg = data.data_config_for(cfg, ShapeConfig("smoke", t, b, "train"))
+        params, state, step, _ = lt.build(cfg, opt_cfg, ts_cfg, device="cpu",
+                                          mesh=mesh if dt == "float32"
+                                          else None)
+        metrics = {k: float(v) for k, v in
+                   step(params, state, lt.batch_on(dcfg, 0, "cpu"))[2].items()}
+        steps[dt] = (metrics, params, state)
+        if dt == "float32":
+            one, s1, f1, _ = lt.build(cfg, opt_cfg, ts_cfg, device="cpu")
+            gn32 = float(f1(one, s1, lt.batch_on(dcfg, 0, "cpu"))[2]
+                         ["grad_norm"])
+    names = [n for n, _ in steps["float32"][1].named_parameters()]
+    held = _hold_shards(steps["float32"], steps["float64"], names)
+    return dict(held, grad_norm=(steps["float32"][0]["grad_norm"], gn32,
+                                 steps["float64"][0]["grad_norm"]))
+
+
 def sharded_cpu_rank(pmesh, root: str) -> dict:
     """Phase 13 on four CPU ranks (the route: see ``SHARDED_ROUTE``).
     (b) the 2 x 2 step at full width, its collectives counted, against the
@@ -1889,7 +2013,7 @@ def sharded_cpu_rank(pmesh, root: str) -> dict:
     names = [n for n, _ in params.named_parameters()]
     t0 = time.perf_counter()
     out["comm"] = _collectives(lambda: out.__setitem__("m0", metrics(step(
-        params, state, lt.batch_on(dcfg, 0, "cpu"))[2])))
+        params, state, lt.batch_on(dcfg, 0, "cpu"))[2])))["comm"]
     out["step0_s"] = time.perf_counter() - t0
     _say(rank, f"(b) step 0 in {out['step0_s']:.1f} s")
     # the ranks take the card's one-device step in turn: four at once do
@@ -1936,6 +2060,9 @@ def sharded_cpu_rank(pmesh, root: str) -> dict:
     out["bars_card_restart"] = _hold(card, mine, names, rank)
     _say(rank, "(c) held")
     out["restart_params"] = sum(p.numel() for p in params.parameters())
+    # ---- (e) ROADMAP C11: mamba2's 2 x 2 step under this torch -----------
+    out["c11"] = _c11_hold(m22)
+    _say(rank, "(e) held")
     out["launches"] = launch_counts()
     return out
 
@@ -1965,8 +2092,10 @@ def phase_sharded(card: str):
         f"{', '.join(f'{x:.6f}' for x in one['losses'])}"
         f"; warm step p50 {one['p50']:.4f} s over steps 1-{n - 1} "
         f"({one['tokens'] / one['p50']:.1f} tokens/s); max_memory_allocated "
-        f"{one['peak']:,} B over the warm steps; collectives of one step "
-        f"{one['comm'] or 'none'}")
+        f"{one['peak']:,} B over the warm steps (allocated before each, its "
+        f"peak: {one['steps_mem']}); collectives of one step "
+        f"{one['comm'] or 'none'}; local matmul FLOPs of one step "
+        f"{one['flops']:.6e}")
     # ---- (b, c) the 2 x 2 mesh on four CPU ranks --------------------------
     root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
                         "sharded")
@@ -1991,7 +2120,8 @@ def phase_sharded(card: str):
             f" s; step 0 {r['step0_s']:.1f} s (cold, collectives counted); "
             f"max_memory_allocated not measured (a CPU rank; its host peak "
             f"is not measured either); collectives of step 0 (kind: count, "
-            f"bytes sent) {r['comm']}")
+            f"result bytes (the reference's convention), bytes sent) "
+            f"{r['comm']}")
     log(f"{tag} (c) a 2 x 2 run of {SHARDED_ARCH} at the smoke config "
         f"({r0['restart_params']:,} params; at full width its 11.76 GB "
         f"checkpoint costs the CPU ranks more than the phase's time) "
@@ -2003,12 +2133,200 @@ def phase_sharded(card: str):
     assert all(r["m0"] == r0["m0"] for r in ranks)
     for r in ranks:
         assert r["local"] * 3 < r["whole"], r    # held sharded at rest
+    worst = max(ranks, key=lambda r: r["c11"]["perr"])
+    gn = r0["c11"]["grad_norm"]
+    log(f"{tag} (e) C11: mamba2-130m (smoke config, batch {C11_BATCH[0]} x "
+        f"{C11_BATCH[1]}) takes its float32 step on the 2 x 2 mesh under "
+        f"torch {torch_version()}; each rank's shards against the one-device "
+        f"step in float64 from the same weights, rank {worst['rank']}: "
+        f"{worst['c11']['text']}; m and v over all four ranks at worst "
+        f"{max(r['c11']['mv'] for r in ranks):.3g} of their bar; grad_norm "
+        f"2 x 2 {gn[0]!r}, one device float32 {gn[1]!r}, float64 {gn[2]!r}")
     log(f"phase 13 {SHARDED_MOE_SKIP}")
     counts = {k.name: sum(x["launches"][k.name] for x in [one, *ranks])
               for k in KERNELS}
     log(f"phase 13 launches, summed over the 1 x 1 rank and the four CPU "
         f"ranks: {counts} (the sharded trainer has no kernel of its own)")
     log(f"phase 13 train-sharded: ok ({time.perf_counter() - t0:.1f} s)")
+    measured = dict(cpu_comm=r0["comm"], cpu_held=r0["local"],
+                    card_held=one["local"], card_flops=one["flops"],
+                    card_peak=one["peak"], card_split=one["split"])
+    return counts, measured
+
+
+# ---------------------------------------------------------------- phase 14
+def dryrun_worker(job: str) -> None:
+    """One phase-14 worker (``python3 -c``, one process): the dry run's
+    cells named in ``job`` (a JSON file), or a calibration cell of phase
+    13's; writes its records and its kernel launches beside ``job``."""
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(
+        __file__)), "src"))
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch import dryrun as D
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import ShapeConfig
+    with open(job) as f:
+        spec = json.load(f)
+    reset_launch_counts()
+    out = {"records": []}
+    if spec["kind"] == "cells":
+        for arch, shape, multi_pod in spec["cells"]:
+            t0 = time.perf_counter()
+            rec = D.run_cell(arch, shape, multi_pod, spec["out"],
+                             microbatches=D.MICROBATCH_DEFAULTS.get(arch, 1),
+                             device="cuda")
+            rec["wall_seconds"] = time.perf_counter() - t0
+            out["records"].append(rec)
+    else:
+        # phase 13's cells: the 2 x 2 mesh of CPU ranks (batch 2 x 32) and
+        # the 1 x 1 NCCL mesh on the card (batch 4 x 512)
+        on_card = spec["kind"] == "card"
+        b, t = SHARDED_CARD[:2] if on_card else SHARDED_CPU
+        shape = (1, 1) if on_card else (2, 2)
+        dev = "cuda" if on_card else "cpu"
+        with D.fake_world(math.prod(shape)):
+            mesh = make_mesh(shape, ("data", "model"), dev)
+            trace = D.trace_cell(SHARDED_ARCH, "train", mesh, device=dev,
+                                 cfg=_sharded_cfg(),
+                                 shape=ShapeConfig("train", t, b, "train"))
+            out["records"].append(D.analyse(trace, mesh, SHARDED_ARCH,
+                                            f"phase13_{spec['kind']}"))
+    out["launches"] = launch_counts()
+    with open(job + ".out", "w") as f:
+        json.dump(out, f)
+
+
+def dryrun_workers() -> list:
+    """Phase 14's workers, side by side (``DRYRUN_WORKERS``, then phase
+    13's two cells); returns their results in that order. A worker that
+    fails or outlives ``DRYRUN_TIMEOUT_S`` fails the phase with its log's
+    tail."""
+    import shutil
+    t0 = time.perf_counter()
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                        "dryrun")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    jobs = [dict(kind="cells", cells=c, out=os.path.join(root, "records"))
+            for c in DRYRUN_WORKERS]
+    jobs += [dict(kind="cpu"), dict(kind="card")]
+    procs = []
+    here = os.path.dirname(os.path.abspath(__file__))
+    for i, job in enumerate(jobs):
+        path = os.path.join(root, f"job{i}.json")
+        with open(path, "w") as f:
+            json.dump(job, f)
+        log_f = open(path + ".log", "w")
+        procs.append((path, log_f, subprocess.Popen(
+            [sys.executable, "-c", "import chip_smoke, sys; "
+             "chip_smoke.dryrun_worker(sys.argv[1])", path],
+            cwd=here, stdout=log_f, stderr=subprocess.STDOUT)))
+    results, failed = [], []
+    try:
+        for job, (path, log_f, proc) in zip(jobs, procs):
+            try:
+                rc = proc.wait(timeout=max(1.0, DRYRUN_TIMEOUT_S
+                                           - (time.perf_counter() - t0)))
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.wait()
+                rc = f"timeout after {DRYRUN_TIMEOUT_S} s"
+            log_f.close()
+            if rc != 0:
+                with open(path + ".log") as f:
+                    failed.append(f"{path} ({job}) ended {rc}:\n"
+                                  f"{f.read()[-3000:]}")
+                continue
+            with open(path + ".out") as f:
+                results.append(json.load(f))
+    finally:
+        for _, log_f, proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            log_f.close()
+    assert not failed, "phase 14 workers failed:\n" + "\n".join(failed)
+    return results
+
+
+def _comm_of(rec) -> dict:
+    """A record's collectives as phase 13 prints them: ``{kind: [count,
+    result bytes, bytes sent]}``, the kinds it issued."""
+    pd = rec["per_device"]
+    sent = pd.get("collective_sent_by_kind")   # none for the coloring cell
+    return {k: [n, int(pd["collective_by_kind"][k]),
+                int(sent[k]) if sent else None]
+            for k, n in sorted(pd["collective_counts"].items()) if n}
+
+
+def phase_dryrun(card: str, sharded: dict):
+    """Phase 14 (see the docstring at the top). Returns the kernel launches
+    of the phase, summed over its workers (none: the dry run runs no
+    kernel)."""
+    from repro_torch.kernels import KERNELS
+    from repro_torch.launch import dryrun as D
+    t0 = time.perf_counter()
+    tag = f"phase 14 [{card}]"
+    results = dryrun_workers()
+    gb = 1e9
+    for res in results[:len(DRYRUN_WORKERS)]:
+        for rec in res["records"]:
+            ma, pd, rf = rec["memory_analysis"], rec["per_device"], \
+                rec["roofline"]
+            log(f"{tag} (a) {rec['arch']} x {rec['shape']} on "
+                f"{tuple(rec['mesh'])} ({rec['devices']} fake ranks, "
+                f"{rec['device_type']}): trace {rec['trace_seconds']:.1f} s "
+                f"(cell {rec['wall_seconds']:.1f} s); per rank: arguments "
+                f"{ma['argument_size_in_bytes'] / gb:.3f} GB, peak "
+                f"{ma['peak_memory_in_bytes'] / gb:.3f} GB of 80 GB, "
+                f"calibrated {ma['calibrated_peak_in_bytes'] / gb:.3f} GB "
+                f"({rec['fit']}); FLOPs "
+                f"{pd['flops']:.4e}; collectives {_comm_of(rec) or 'none'}; "
+                f"dominant {rf['dominant']} ({rf['bound_s']:.4g} s), "
+                f"roofline fraction {rec.get('roofline_fraction', 0):.4f}")
+    cpu = results[len(DRYRUN_WORKERS)]["records"][0]
+    card_rec = results[len(DRYRUN_WORKERS) + 1]["records"][0]
+    # ---- (b) calibration against phase 13's measurements in this run ------
+    got_comm = _comm_of(cpu)
+    log(f"{tag} (b) phase 13's 2 x 2 cell ({SHARDED_ARCH}, "
+        f"{SHARDED_LAYERS} layers, float32, batch {SHARDED_CPU[0]} x "
+        f"{SHARDED_CPU[1]}, CPU mesh) dry-run: rank 0 collectives "
+        f"(kind: count, result bytes, bytes sent) {got_comm}, held "
+        f"{cpu['memory_analysis']['held_bytes']:,} B; phase 13 measured "
+        f"{sharded['cpu_comm']}, held {sharded['cpu_held']:,} B")
+    assert got_comm == sharded["cpu_comm"], (got_comm, sharded["cpu_comm"])
+    assert cpu["memory_analysis"]["held_bytes"] == sharded["cpu_held"]
+    ma = card_rec["memory_analysis"]
+    peak, measured = ma["peak_memory_in_bytes"], sharded["card_peak"]
+    log(f"{tag} (b) phase 13's 1 x 1 card cell (batch {SHARDED_CARD[0]} x "
+        f"{SHARDED_CARD[1]}) dry-run: held {ma['held_bytes']:,} B "
+        f"(phase 13: {sharded['card_held']:,} B), local matmul FLOPs "
+        f"{card_rec['per_device']['flops']:.6e} (count_ops around the real "
+        f"step on the card: {sharded['card_flops']:.6e}); predicted peak "
+        f"{peak:,} B beside the measured max_memory_allocated "
+        f"{measured:,} B (gap {peak - measured:+,} B, "
+        f"{100 * (peak - measured) / measured:+.1f} %)")
+    assert ma["held_bytes"] == sharded["card_held"]
+    assert card_rec["per_device"]["flops"] == sharded["card_flops"]
+    sp = sharded["card_split"]
+    log(f"{tag} (b) the card's peak over the traced one, one more warm step "
+        f"(_peak_split): allocated {sp['allocated']:,} B, requested "
+        f"{sp['requested']:,} B (allocator rounding "
+        f"{sp['allocated'] - sp['requested']:+,} B); the dry run's tracker on "
+        f"the real tensors {sp['tracked']:,} B (traced on fake tensors "
+        f"{peak:,} B: {sp['tracked'] - peak:+,} B), so "
+        f"{sp['requested'] - sp['tracked']:+,} B are asked for inside ops "
+        f"the tracker cannot see; the peak falls in {sp['peak_op']} "
+        f"({sp['before_op']:,} B allocated before it, {sp['inside_op']:,} B "
+        f"inside it); the largest in-op allocations of the step "
+        f"{sp['largest_inside']}; calibrated peak (x {D.PEAK_CALIBRATION:.6f}) "
+        f"{ma['calibrated_peak_in_bytes']:,} B ({card_rec['fit']})")
+    assert abs(sp["tracked"] - peak) <= 0.01 * peak, (sp["tracked"], peak)
+    counts = {k.name: sum(r["launches"][k.name] for r in results)
+              for k in KERNELS}
+    log(f"phase 14 launches, summed over its {len(results)} workers: "
+        f"{counts} (the dry run runs no kernel)")
+    log(f"phase 14 dryrun: ok ({time.perf_counter() - t0:.1f} s)")
     return counts
 
 
@@ -2168,12 +2486,13 @@ def main() -> int:
                                      dist_ranks)
     counts_lm = phase_lm()
     counts_train = phase_train()
-    counts_sharded = phase_sharded(card)
+    counts_sharded, sharded = phase_sharded(card)
+    counts_dryrun = phase_dryrun(card, sharded)
     by_path = {"main": main_counts, "models": counts_models,
                "stream": counts_stream, "serve": counts_serve,
                "distributed": counts_dist, "analysis": counts_analysis,
                "lm": counts_lm, "train": counts_train,
-               "sharded": counts_sharded}
+               "sharded": counts_sharded, "dryrun": counts_dryrun}
 
     # ---- phase 5: timings at the main path's shapes ---------------------
     dg, c, cpad, V, D, runs = real_slabs(graphs[0], reports[0].colors, words)

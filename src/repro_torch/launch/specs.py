@@ -97,10 +97,13 @@ def device_put(params: nn.Module, shardings: Dict[str, tuple], mesh):
 
 def batch_put(batch: Dict[str, torch.Tensor], cfg: ModelConfig,
               rules: Rules, mesh) -> Dict[str, torch.Tensor]:
-    """A global batch (the same on every rank) split on ``"batch"``."""
+    """A global batch (the same on every rank) split on ``"batch"``; a
+    leaf that is already a DTensor is kept as it is."""
+    from torch.distributed.tensor import DTensor
     axes = batch_axes(cfg)
     sh = tree_shardings(batch, {k: axes[k] for k in batch}, rules, mesh)
-    return {k: distribute(v, mesh, sh[k]) for k, v in batch.items()}
+    return {k: v if isinstance(v, DTensor) else distribute(v, mesh, sh[k])
+            for k, v in batch.items()}
 
 
 def placements_of(tree):

@@ -12,6 +12,7 @@ shared experts).
 """
 from __future__ import annotations
 
+import contextlib
 import math
 
 from .params import reference_leaves, reference_shape
@@ -59,3 +60,76 @@ def model_flops(cfg, shape) -> float:
     if shape.kind == "prefill":
         return 2.0 * n * shape.seq_len * shape.global_batch
     return 2.0 * n * shape.global_batch  # decode: one token per sequence
+
+
+# ---------------------------------------------------------------- folding
+# one trace at a time folds loops; the weight is read from autograd's
+# threads as well, so it is process state, not thread-local
+class _Fold:
+    on = False
+    weight = 1
+
+
+_FOLD = _Fold()
+
+
+@contextlib.contextmanager
+def folded_loops():
+    """While active (the dry run's traces), a loop written over
+    :func:`trips` runs only its first two trips, and :func:`trip_weight` is
+    ``n - 1`` while the second runs: the reference's HLO walk counts a
+    while body once times its trip count, and an op counter multiplies the
+    second trip's ops by the weight. Trips 2..n must do the same work on
+    the same shapes; :func:`trips` refuses a loop whose trips' operand
+    shapes differ."""
+    prev = _FOLD.on
+    _FOLD.on = True
+    try:
+        yield
+    finally:
+        _FOLD.on = prev
+
+
+def trips(items, n: int, *, backward_inside: bool = False):
+    """The items of a loop of ``n`` trips that do the same work on the same
+    shapes: all of them, or the first two under :func:`folded_loops`. A loop
+    that autograd records folds only if each trip runs its own backward
+    (``backward_inside``: a train step's microbatches), else one trip's
+    graph would stand for all."""
+    import torch
+    if not _FOLD.on or n <= 1 or (torch.is_grad_enabled()
+                                  and not backward_inside):
+        yield from items
+        return
+    items = list(items)
+    shapes = [_trip_shapes(x) for x in items]
+    if len(items) != n or any(s != shapes[0] for s in shapes):
+        raise ValueError(
+            f"a folded loop needs {n} trips on the same shapes; got "
+            f"{len(items)}: {sorted(set(shapes), key=str)[:3]}")
+    weight = _FOLD.weight
+    try:
+        # the first trip, then one that stands for the other n - 1 (a first
+        # trip may differ: the first microbatch writes the gradients the
+        # others add into)
+        yield items[0]
+        _FOLD.weight = weight * (n - 1)
+        yield items[1]
+    finally:
+        _FOLD.weight = weight
+
+
+def _trip_shapes(item) -> tuple:
+    """The shapes, dtypes and placements (of a DTensor) of the tensors in
+    one trip's operands."""
+    import torch
+    from torch.utils._pytree import tree_flatten
+    return tuple((tuple(t.shape), t.dtype, getattr(t, "placements", None))
+                 for t in tree_flatten(item)[0]
+                 if isinstance(t, torch.Tensor))
+
+
+def trip_weight() -> int:
+    """How many trips the op being run stands for (1 unless a folded loop
+    runs: see :func:`folded_loops`)."""
+    return _FOLD.weight

@@ -20,8 +20,10 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
-from ..parallel.sharding import (constrain, current_rules, on_mesh,
-                                 on_shards, placements, spec_for_array,
+from .counting import trips
+from ..parallel.sharding import (constrain, current_rules, grad_as_placed,
+                                 merged, on_mesh, on_shards, placements,
+                                 redistribute, spec_for_array, split_last,
                                  unshard)
 
 _NEG = -1e30
@@ -31,9 +33,14 @@ INT32_MAX = 2**31 - 1
 def rms_norm(x, w, eps: float = 1e-6):
     """RMSNorm with an fp32 *reduction* and the data path in ``x.dtype``;
     scales by ``1 + w``."""
+    return rms_normalized(x, eps) * (1.0 + w.to(x.dtype))
+
+
+def rms_normalized(x, eps: float = 1e-6):
+    """:func:`rms_norm` before its weight: ``x`` over its fp32 root mean
+    square, in ``x.dtype``."""
     ms = x.float().square().mean(dim=-1, keepdim=True)
-    scale = torch.rsqrt(ms + eps).to(x.dtype)
-    return x * scale * (1.0 + w.to(x.dtype))
+    return x * torch.rsqrt(ms + eps).to(x.dtype)
 
 
 def rope(x, positions, theta: float = 10_000.0):
@@ -48,6 +55,31 @@ def rope(x, positions, theta: float = 10_000.0):
     x1, x2 = x[..., :half], x[..., half:]
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)
+
+
+def proj_heads(x, w):
+    """``einsum("btd,dhe->bthe")``: project onto heads. On a mesh it is the
+    same contraction onto the flattened ``(h, e)`` dim, split into heads
+    after (the einsum views its product into heads inside, which DTensor
+    refuses when the split of ``h * e`` cuts heads: 8 kv heads on 16
+    ranks). Each flatten and split keeps its gradient on its own
+    placements (``sharding.merged``, ``split_last``): the backward's views
+    then cut no shard either."""
+    if on_mesh(x):
+        h, e = w.shape[1:]
+        return split_last(x @ merged(w, 1, 2), h, e)
+    return torch.einsum("btd,dhe->bthe", x, w)
+
+
+def merge_heads(o, w):
+    """``einsum("bthe,hed->btd")``: the output projection. On a mesh it is
+    the same contraction over the flattened ``(h, e)`` dims: the einsum
+    flattens them as ``(e, h)``, which DTensor (torch 2.11) refuses when
+    the heads are split; as in :func:`proj_heads`, each flatten keeps its
+    gradient on its own placements."""
+    if on_mesh(o):
+        return merged(o, 2, 3) @ merged(w, 0, 1)
+    return torch.einsum("bthe,hed->btd", o, w)
 
 
 def _softcap(s, cap: float):
@@ -81,9 +113,31 @@ def flash_attention(
     Returns [B, Tq, H, Dv]. On a mesh each rank attends its own (batch,
     kv-head) blocks (:func:`kv_blocks`), with no collective inside.
     """
+    k, v = kv_for_blocks(q, k, v)
     return on_shards(_flash_attention, kv_blocks(k), 1)(
         q, k, v, q_positions, kv_positions, causal, window, softcap,
         q_chunk, kv_chunk, scale)
+
+
+def kv_for_blocks(q, k, v):
+    """``(k, v)``, on a mesh with their heads repeated up to ``q``'s where
+    the query heads split over the mesh and the kv heads do not (8 kv heads
+    of 32 on 16 ranks): each rank then attends its own query heads against
+    their own kv heads, where it would otherwise attend every head of its
+    rows. Head ``j`` of the repeat is kv head ``j // G``, the one query
+    head ``j`` reads, so the attention is the same."""
+    rules = current_rules()
+    if rules is None or not on_mesh(k):
+        return k, v
+    mesh = k.device_mesh
+    kv = spec_for_array(tuple(k.shape), ("batch", None, "kv_heads", None),
+                        rules, mesh)
+    qh = spec_for_array(tuple(q.shape), ("batch", None, "heads", None),
+                        rules, mesh)
+    if kv[2] is not None or qh[2] is None:
+        return k, v
+    g = q.shape[2] // k.shape[2]
+    return k.repeat_interleave(g, dim=2), v.repeat_interleave(g, dim=2)
 
 
 def kv_blocks(k):
@@ -137,7 +191,7 @@ def _flash_attention(q, k, v, q_positions, kv_positions, causal, window,
         m = torch.full((b, kh, g, qc), _NEG, dtype=torch.float32, device=q.device)
         l = torch.zeros((b, kh, g, qc), dtype=torch.float32, device=q.device)
         o = torch.zeros((b, kh, g, qc, dv), dtype=torch.float32, device=q.device)
-        for k_j, v_j, kpos_j in zip(kb, vb, kpb):
+        for k_j, v_j, kpos_j in trips(zip(kb, vb, kpb), len(kpb)):
             s = torch.einsum("bkgqd,bksd->bkgqs", q32, k_j.float()) * scale
             s = _softcap(s, softcap)
             valid = torch.ones((qc, kc), dtype=torch.bool, device=q.device)
@@ -163,6 +217,7 @@ def local_attention(q, k, v, *, window: int, q_positions, softcap: float = 0.0):
     """Banded causal self-attention, O(T·window) FLOPs: w-sized query blocks
     against (previous + own) key blocks; per (batch, kv-head) block on a
     mesh, as :func:`flash_attention`."""
+    k, v = kv_for_blocks(q, k, v)
     return on_shards(_local_attention, kv_blocks(k), 1)(
         q, k, v, window, q_positions, softcap)
 
@@ -204,23 +259,96 @@ def cache_attention(q, k_cache, v_cache, *, cur_len, window: int = 0,
                     softcap: float = 0.0, scale: Optional[float] = None):
     """Single-token decode attention over a [B, S, KH, D] cache; positions
     ``>= cur_len`` (and, with a window, ``< cur_len - window``) are masked."""
-    b, tq, h, d = q.shape
-    _, s, kh, dk = k_cache.shape
-    g = h // kh
-    scale = scale if scale is not None else d ** -0.5
-    qg = q.reshape(b, tq, kh, g, d)
-    scores = torch.einsum("bqkgd,bskd->bkgqs", qg.float(),
-                          k_cache.float()) * scale
-    scores = _softcap(scores, softcap)
+    s = k_cache.shape[1]
     kv_pos = torch.arange(s, device=q.device)
     valid = kv_pos[None, :] < cur_len[:, None]            # [B, S]
     if window and window > 0:
         valid &= kv_pos[None, :] >= (cur_len[:, None] - window)
+    return attend_cache(q, k_cache, v_cache, valid, softcap=softcap,
+                        scale=scale)
+
+
+def attend_cache(q, k_cache, v_cache, valid, *, softcap: float = 0.0,
+                 scale: Optional[float] = None):
+    """Softmax attention of q [B, TQ, H, D] over a [B, S, KH, D] cache at
+    the positions ``valid`` [B, S] marks. On a mesh each rank attends over
+    the block of the cache it holds (:func:`_attend_cache_blocks`)."""
+    b, tq, h, d = q.shape
+    kh = k_cache.shape[2]
+    g = h // kh
+    scale = scale if scale is not None else d ** -0.5
+    if on_mesh(k_cache):
+        return _attend_cache_blocks(q, k_cache, v_cache, valid, softcap,
+                                    scale)
+    qg = q.reshape(b, tq, kh, g, d)
+    scores = torch.einsum("bqkgd,bskd->bkgqs", qg.float(),
+                          k_cache.float()) * scale
+    scores = _softcap(scores, softcap)
     scores = torch.where(valid[:, None, None, None, :], scores, _NEG)
     p = torch.softmax(scores, dim=-1)
     out = torch.einsum("bkgqs,bskd->bqkgd", p.to(v_cache.dtype).float(),
                        v_cache.float())
     return out.reshape(b, tq, h, -1).to(q.dtype)
+
+
+def _attend_cache_blocks(q, k_cache, v_cache, valid, softcap, scale):
+    """:func:`attend_cache` on a mesh, on the cache's own layout: each rank
+    attends over the block it holds (its rows, its stretch of the sequence,
+    its kv heads) and the blocks of a row are combined by their softmax
+    statistics (the log-sum-exp combine): one max and two sums over the
+    ranks that split the sequence, and no cache moves. (DTensor's own
+    contraction over a sequence-split cache views its operands in ways
+    torch 2.11 refuses.) ``q`` comes to the rows and kv heads the cache
+    is split by, whole over the sequence split."""
+    from torch.distributed.tensor import (DTensor, Partial, Replicate,
+                                          Shard, distribute_tensor)
+    from torch.distributed.tensor.experimental import local_map
+    mesh = k_cache.device_mesh
+    b, tq, h, _ = q.shape
+    cache, qp, okp, top, total, whole = [], [], [], [], [], []
+    for p in k_cache.placements:
+        dim = p.dim if isinstance(p, Shard) and p.dim in (0, 1, 2) else None
+        cache.append(p if dim is not None else Replicate())
+        qp.append(Shard(dim) if dim in (0, 2) else Replicate())
+        okp.append(Shard(dim) if dim in (0, 1) else Replicate())
+        # statistics [B, KH, G, TQ] and outputs [B, KH, G, TQ, D]
+        stat = {0: Shard(0), 2: Shard(1)}.get(dim, Replicate())
+        top.append(Partial("max") if dim == 1 else stat)
+        total.append(Partial("sum") if dim == 1 else stat)
+        whole.append(stat)
+    cache, qp, okp = tuple(cache), tuple(qp), tuple(okp)
+    top, total, whole = tuple(top), tuple(total), tuple(whole)
+    if not isinstance(valid, DTensor):
+        valid = distribute_tensor(valid, mesh, list(okp), src_data_rank=None)
+
+    def block(q, k, v, ok):
+        b, tq, h, d = q.shape
+        kh = k.shape[2]
+        qg = q.reshape(b, tq, kh, h // kh, d)
+        s = torch.einsum("bqkgd,bskd->bkgqs", qg.float(), k.float()) * scale
+        s = _softcap(s, softcap)
+        s = torch.where(ok[:, None, None, None, :], s, _NEG)
+        m = s.amax(dim=-1)
+        p = torch.exp(s - m[..., None])
+        o = torch.einsum("bkgqs,bskd->bkgqd", p.to(v.dtype).float(),
+                         v.float())
+        return m, p.sum(dim=-1), o
+
+    def rescale(m, m_all, l, o):
+        w = torch.exp(m - m_all)
+        return l * w, o * w[..., None]
+
+    m, l, o = local_map(block, out_placements=(top, total, total),
+                        in_placements=(qp, cache, cache, okp),
+                        device_mesh=mesh)(
+        redistribute(q, qp), redistribute(k_cache, cache),
+        redistribute(v_cache, cache), redistribute(valid, okp))
+    m_all = m.redistribute(mesh, whole)
+    l, o = local_map(rescale, out_placements=(total, total),
+                     in_placements=(top, whole, total, total),
+                     device_mesh=mesh)(m, m_all, l, o)
+    out = o.redistribute(mesh, whole) / l.redistribute(mesh, whole)[..., None]
+    return out.permute(0, 3, 1, 2, 4).reshape(b, tq, h, -1).to(q.dtype)
 
 
 def delay(x, i: int):
@@ -246,9 +374,11 @@ def lookup(table, tokens):
     """``table[tokens]``, the embedding gather. On a mesh it is
     ``F.embedding`` on the table with its vocab dim made whole: the index
     op's backward fails under torch 2.11, and the vocab-split embedding's
-    masked partial sum fails on a 2-d mesh."""
+    masked partial sum fails on a 2-d mesh. The table's gradient comes back
+    on its own placements, as a tied head's does (``transformer._logits``):
+    torch 2.11 cannot add the two otherwise."""
     if on_mesh(table):
-        return F.embedding(tokens, unshard(table, 0))
+        return F.embedding(tokens, unshard(grad_as_placed(table), 0))
     return table[tokens]
 
 

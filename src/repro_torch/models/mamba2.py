@@ -11,9 +11,9 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from ..parallel.sharding import row_local
+from ..parallel.sharding import constrain, merged, row_local, split_last
 from .config import ModelConfig, SSMConfig
-from .layers import delay, rms_norm, tail
+from .layers import delay, rms_normalized, tail
 
 
 def dims(cfg: ModelConfig, s: SSMConfig):
@@ -45,6 +45,17 @@ def _split_proj(z_x_bc_dt, cfg, s):
     xbc = z_x_bc_dt[..., d_inner:d_inner + d_inner + 2 * gn]
     dt = z_x_bc_dt[..., -n_heads:]
     return z, xbc, dt
+
+
+def _gated_norm(y, z, w, eps: float):
+    """``rms_norm(y * silu(z), w)`` [B, T, d_inner]. On a mesh the product
+    gets ``d_inner`` whole and the normalization runs on each rank's rows
+    (``row_local``), the weight after it: DTensor's own norm (torch 2.11)
+    makes its square's backward add a partial and a split gradient, which
+    it cannot (ROADMAP C11). The same ops in the same order as
+    :func:`~.layers.rms_norm`."""
+    g = constrain(y * F.silu(z), ("batch", None, None))
+    return row_local(rms_normalized, 1)(g, eps) * (1.0 + w.to(g.dtype))
 
 
 def _causal_conv(xbc, w, bias):
@@ -126,16 +137,26 @@ def mamba2_forward(p, x, cfg: ModelConfig, s: SSMConfig):
     dt = F.softplus(dt_raw.float() + p["dt_bias"].float())
     a = -torch.exp(p["A_log"].float())                           # [H]
     dta = dt * a                                                 # [B,T,H]
-    xh = xs.reshape(*xs.shape[:2], n_heads, s.headdim)
+    xh = split_last(xs, n_heads, s.headdim)
     xh_dt = xh.float() * dt[..., None]
     # the scan is row-local; on a mesh each rank scans its own rows (its
     # cumsum's backward, a flip, has no DTensor strategy under torch 2.11)
     y, final = row_local(ssd_scan, 2)(xh_dt, dta, b_mat.float(),
                                       c_mat.float(), s.chunk)
     y = y + xh.float() * p["D"].float()[None, None, :, None]
-    y = y.reshape(*xs.shape[:2], d_inner).to(dt_)
-    y = rms_norm(y * F.silu(z), p["norm_w"], cfg.norm_eps)
+    y = merged(y, 2, 3).to(dt_)
+    y = _gated_norm(y, z, p["norm_w"], cfg.norm_eps)
     return y @ p["out_proj"].to(dt_), final, conv_tail
+
+
+def _ssm_step(state, xh, b_mat, c_mat, dt, decay):
+    """One recurrent step of the SSD state [B,H,P,N] and its readout
+    [B,H,P]. Row-local: on a mesh each rank steps its own rows (DTensor's
+    contractions here flatten a split head dim under a row split over two
+    mesh axes, which torch 2.11 refuses on the multi-pod mesh)."""
+    state_new = (state * decay[..., None, None]
+                 + torch.einsum("bhp,bn,bh->bhpn", xh, b_mat, dt))
+    return torch.einsum("bhpn,bn->bhp", state_new, c_mat), state_new
 
 
 def mamba2_decode(p, x, state, conv_tail, cfg: ModelConfig, s: SSMConfig):
@@ -158,11 +179,10 @@ def mamba2_decode(p, x, state, conv_tail, cfg: ModelConfig, s: SSMConfig):
     dt = F.softplus(dt_raw.float() + p["dt_bias"].float())[:, 0]  # [B,H]
     a = -torch.exp(p["A_log"].float())
     decay = torch.exp(dt * a)                                    # [B,H]
-    xh = xs.reshape(-1, n_heads, s.headdim).float()              # [B,H,P]
-    state_new = (state * decay[..., None, None]
-                 + torch.einsum("bhp,bn,bh->bhpn", xh, b_mat, dt))
-    y = torch.einsum("bhpn,bn->bhp", state_new, c_mat)
+    xh = split_last(xs, n_heads, s.headdim)[:, 0].float()        # [B,H,P]
+    y, state_new = row_local(_ssm_step, 2)(state, xh, b_mat, c_mat, dt,
+                                           decay)
     y = y + xh * p["D"].float()[None, :, None]
     y = y.reshape(-1, 1, d_inner).to(dt_)
-    y = rms_norm(y * F.silu(z), p["norm_w"], cfg.norm_eps)
+    y = _gated_norm(y, z, p["norm_w"], cfg.norm_eps)
     return y @ p["out_proj"].to(dt_), state_new, new_tail

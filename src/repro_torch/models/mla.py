@@ -12,7 +12,8 @@ from __future__ import annotations
 import torch
 
 from .config import ModelConfig, MLAConfig
-from .layers import flash_attention, rms_norm, rope as apply_rope
+from .layers import (flash_attention, merge_heads, proj_heads, rms_norm,
+                     rope as apply_rope)
 
 
 def mla_init(b, cfg: ModelConfig, m: MLAConfig):
@@ -28,7 +29,7 @@ def mla_init(b, cfg: ModelConfig, m: MLAConfig):
 
 def project(p, x, positions, m: MLAConfig, eps: float):
     dt = x.dtype
-    q = torch.einsum("btd,dhe->bthe", x, p["wq"].to(dt))
+    q = proj_heads(x, p["wq"].to(dt))
     qn, qr = q[..., :m.nope_head_dim], q[..., m.nope_head_dim:]
     qr = apply_rope(qr, positions)
     kv = x @ p["wdkv"].to(dt)
@@ -42,7 +43,7 @@ def mla_forward(p, x, positions, cfg: ModelConfig, m: MLAConfig):
     """Full-sequence MLA. Returns (out [B,T,d], (ckv, kr) for cache fill)."""
     dt = x.dtype
     qn, qr, ckv, kr = project(p, x, positions, m, cfg.norm_eps)
-    kn_v = torch.einsum("btr,rhe->bthe", ckv, p["wukv"].to(dt))
+    kn_v = proj_heads(ckv, p["wukv"].to(dt))
     kn = kn_v[..., :m.nope_head_dim]
     v = kn_v[..., m.nope_head_dim:]
     h = cfg.n_heads
@@ -52,7 +53,7 @@ def mla_forward(p, x, positions, cfg: ModelConfig, m: MLAConfig):
     attn = flash_attention(
         q, k, v, q_positions=positions, kv_positions=positions, causal=True,
         scale=(m.nope_head_dim + m.rope_head_dim) ** -0.5)
-    out = torch.einsum("bthv,hvd->btd", attn, p["wo"].to(dt))
+    out = merge_heads(attn, p["wo"].to(dt))
     return out, (ckv, kr)
 
 

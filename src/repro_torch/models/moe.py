@@ -75,7 +75,11 @@ def _dispatch(x, probs, k: int, e: int, cap: int):
     # written, then cut off.
     buf = torch.zeros((bsz, e, cap + 1, d), dtype=x.dtype, device=dev)
     buf[b_idx, e_s, pos_c] = x_disp
-    counts = torch.bincount(flat_e.reshape(-1), minlength=e).float()
+    # a fixed-shape count (bincount's output shape depends on the data);
+    # every id is < e, so the counts are bincount's exactly
+    ids = flat_e.reshape(-1)
+    counts = torch.zeros(e, dtype=torch.int64, device=dev).scatter_add_(
+        0, ids, torch.ones_like(ids)).float()
     return buf[:, :, :cap], w_s * keep, e_s, pos_c, t_s, counts
 
 

@@ -32,11 +32,14 @@ from typing import Any, Dict, Optional
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from ..parallel.sharding import (activation_rules, constrain, current_rules,
-                                 grad_as_placed, on_mesh, unshard)
+from ..parallel.sharding import (activation_rules, block_of, constrain,
+                                 current_rules, grad_as_placed, on_mesh,
+                                 placements, redistribute, spec_for_array,
+                                 write_rows, write_seq)
 from .config import ModelConfig
 from .params import ParamBuilder, ParamTree, dtype_of, map_axes, tree_map
 from . import layers as L
+from .layers import merge_heads, proj_heads
 from .moe import moe_init, moe_apply
 from .mla import mla_init, mla_forward, mla_decode, project as mla_project
 from .mamba2 import mamba2_init, mamba2_forward, mamba2_decode, dims as ssm_dims
@@ -173,21 +176,6 @@ def init_lm(cfg: ModelConfig, generator: Optional[torch.Generator], device):
 
 
 # ------------------------------------------------------------------ apply
-def proj_heads(x, w):
-    """``einsum("btd,dhe->bthe")``: project onto heads."""
-    return torch.einsum("btd,dhe->bthe", x, w)
-
-
-def merge_heads(o, w):
-    """``einsum("bthe,hed->btd")``: the output projection. On a mesh it is
-    the same contraction over the flattened ``(h, e)`` dims: the einsum
-    flattens them as ``(e, h)``, which DTensor (torch 2.11) refuses when
-    the heads are split."""
-    if on_mesh(o):
-        return o.flatten(2) @ w.flatten(0, 1)
-    return torch.einsum("bthe,hed->btd", o, w)
-
-
 def attn_full(p, cfg, x, positions, spec, cache=None, *, causal=True):
     """Self attention over a full sequence; optionally fills a cache."""
     dt = x.dtype
@@ -225,11 +213,11 @@ def _fill_kv_cache(cache, k, v, cfg, spec):
         tail_k, tail_v = k[:, -w:], v[:, -w:]
         start = max(0, t - w)
         slots = (start + torch.arange(tail_k.shape[1], device=k.device)) % w
-        cache["k"][:, slots] = tail_k
-        cache["v"][:, slots] = tail_v
+        write_seq(cache["k"], tail_k, slots)
+        write_seq(cache["v"], tail_v, slots)
     else:
-        cache["k"][:, :t] = k
-        cache["v"][:, :t] = v
+        write_seq(cache["k"], k)
+        write_seq(cache["v"], v)
 
 
 def attn_decode(p, cfg, x, cache, cur_len, spec):
@@ -245,21 +233,19 @@ def attn_decode(p, cfg, x, cache, cur_len, spec):
     if spec.attn != "enc":
         q = L.rope(q, positions, cfg.rope_theta)
         k = L.rope(k, positions, cfg.rope_theta)
-    b = x.shape[0]
-    rows = torch.arange(b, device=x.device)
     kc, vc = cache["k"], cache["v"]
     if spec.attn == "local" and cfg.local_window:
         w = kc.shape[1]
         slot = cur_len.long() % w
-        kc[rows, slot] = k[:, 0]
-        vc[rows, slot] = v[:, 0]
+        write_rows(kc, slot, k[:, 0])
+        write_rows(vc, slot, v[:, 0])
         # position held by ring slot j after writing position cur_len
         slots = torch.arange(w, device=x.device)
         pos_of_slot = cur_len[:, None] - ((cur_len[:, None] - slots[None]) % w)
         out = _ring_attention(q, kc, vc, pos_of_slot, cur_len, cfg.attn_softcap)
     else:
-        kc[rows, cur_len.long()] = k[:, 0]
-        vc[rows, cur_len.long()] = v[:, 0]
+        write_rows(kc, cur_len, k[:, 0])
+        write_rows(vc, cur_len, v[:, 0])
         out = L.cache_attention(q, kc, vc, cur_len=cur_len + 1,
                                 softcap=cfg.attn_softcap)
     return merge_heads(out, p["wo"].to(dt))
@@ -267,19 +253,8 @@ def attn_decode(p, cfg, x, cache, cur_len, spec):
 
 def _ring_attention(q, kc, vc, pos_of_slot, cur_len, softcap):
     """cache_attention over a ring buffer whose slot->position map varies."""
-    b, tq, h, d = q.shape
-    kh = kc.shape[2]
-    g = h // kh
-    qg = q.reshape(b, tq, kh, g, d)
-    scores = torch.einsum("bqkgd,bskd->bkgqs", qg.float(),
-                          kc.float()) * d ** -0.5
-    if softcap:
-        scores = torch.tanh(scores / softcap) * softcap
     valid = (pos_of_slot >= 0) & (pos_of_slot <= cur_len[:, None])
-    scores = torch.where(valid[:, None, None, None, :], scores, -1e30)
-    p = torch.softmax(scores, dim=-1)
-    out = torch.einsum("bkgqs,bskd->bqkgd", p.to(vc.dtype).float(), vc.float())
-    return out.reshape(b, tq, h, -1).to(q.dtype)
+    return L.attend_cache(q, kc, vc, valid, softcap=softcap)
 
 
 def _cross_attn(p, cfg, x, img_kv):
@@ -357,9 +332,8 @@ def block_apply_full(p, cfg: ModelConfig, spec: BlockSpec, x, positions,
     elif spec.attn == "mla":
         y, (ckv, kr) = mla_forward(p["attn"], h, positions, cfg, cfg.mla)
         if cache is not None:
-            t = ckv.shape[1]
-            cache["ckv"][:, :t] = ckv
-            cache["kr"][:, :t] = kr
+            write_seq(cache["ckv"], ckv)
+            write_seq(cache["kr"], kr)
     elif spec.attn == "ssd":
         y, state, tail = mamba2_forward(p["attn"], h, cfg, cfg.ssm)
         if cache is not None:
@@ -395,13 +369,12 @@ def block_apply_decode(p, cfg: ModelConfig, spec: BlockSpec, x, cache, cur_len,
         x = x + torch.tanh(p["cross"]["gate_attn"].to(x.dtype)) * yc
         return mlp_part(p, cfg, spec, x)[0]
     elif spec.attn == "mla":
-        rows = torch.arange(x.shape[0], device=x.device)
         # write this step's latent into the cache first
         positions = cur_len[:, None]
         _, _, ckv, kr = mla_project(p["attn"], h, positions, cfg.mla,
                                     cfg.norm_eps)
-        cache["ckv"][rows, cur_len.long()] = ckv[:, 0]
-        cache["kr"][rows, cur_len.long()] = kr[:, 0]
+        write_rows(cache["ckv"], cur_len, ckv[:, 0])
+        write_rows(cache["kr"], cur_len, kr[:, 0])
         y, _ = mla_decode(p["attn"], h, cache["ckv"], cache["kr"], cur_len + 1,
                           positions, cfg, cfg.mla)
     elif spec.attn == "ssd":
@@ -525,7 +498,10 @@ def embed_tokens(cfg, params, tokens):
 def _logits(cfg, params, x):
     x = constrain(L.rms_norm(x, params["final_norm"], cfg.norm_eps),
                   ("batch", None, None))
-    head = (params["embed"].T if cfg.tie_embeddings else params["lm_head"])
+    # a tied table's gradient comes back on its own placements, as the
+    # lookup's does: torch 2.11 cannot add the two otherwise
+    head = (grad_as_placed(params["embed"]).T if cfg.tie_embeddings
+            else params["lm_head"])
     logits = x @ head.to(x.dtype)
     logits = constrain(logits, ("batch", None, "vocab"))
     if cfg.logit_softcap:
@@ -619,10 +595,40 @@ def chunked_xent(logits, labels, t_chunk: int = 512):
     for s in range(0, t, tc):
         lg32 = logits[:, s:s + tc].float()
         logz = torch.logsumexp(lg32, dim=-1)
-        gold = torch.gather(unshard(lg32, -1), -1,
-                            labels[:, s:s + tc, None].long())[..., 0]
+        gold = _gold(lg32, labels[:, s:s + tc])
         total = total + (logz - gold).sum()
     return total / (b * t)
+
+
+def _gold(lg32, labels):
+    """The logit of each label ``[B, T]``. On a mesh each rank gathers from
+    the logits it holds (its rows, its stretch of the vocabulary) the
+    labels that fall in it, and the ranks that split the vocabulary sum:
+    DTensor's own gather would need the whole vocabulary on every rank,
+    and its backward makes a zero tensor of the global batch on each (80
+    GB at train_4k on 256 ranks)."""
+    if not on_mesh(lg32):
+        return torch.gather(lg32, -1, labels[..., None].long())[..., 0]
+    from torch.distributed.tensor import Partial, Replicate
+    from torch.distributed.tensor.experimental import local_map
+    mesh = lg32.device_mesh
+    where = placements(spec_for_array(tuple(lg32.shape),
+                                      ("batch", None, "vocab"),
+                                      current_rules(), mesh), mesh)
+    rows = tuple(p if p.is_shard(0) else Replicate() for p in where)
+    summed = tuple(Partial() if p.is_shard(2) else q
+                   for p, q in zip(where, rows))
+    lo = block_of(tuple(lg32.shape), mesh, where)[1][2]
+
+    def gather(lg, lab):
+        rel = lab.long() - lo
+        inside = (rel >= 0) & (rel < lg.shape[-1])
+        got = torch.gather(lg, -1, rel.clamp(0, lg.shape[-1] - 1)[..., None])
+        return torch.where(inside, got[..., 0], 0.0)
+
+    return local_map(gather, out_placements=(summed,),
+                     in_placements=(where, rows), device_mesh=mesh)(
+        redistribute(lg32, where), redistribute(labels, rows))
 
 
 def loss_fn(cfg: ModelConfig, params, batch):

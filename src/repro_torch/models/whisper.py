@@ -23,7 +23,7 @@ from typing import Optional
 
 import torch
 
-from ..parallel.sharding import constrain
+from ..parallel.sharding import constrain, grad_as_placed
 from .config import ModelConfig
 from .params import ParamBuilder, ParamTree, dtype_of
 from . import layers as L
@@ -162,7 +162,9 @@ def forward(cfg: ModelConfig, params, tokens, frames, caches=None):
         x = constrain(x, ("batch", "seq", None))
     x = constrain(L.rms_norm(x, params["final_norm"], cfg.norm_eps),
                   ("batch", None, None))
-    logits = x @ params["embed"].T.to(x.dtype)
+    # the tied table's gradient comes back on its own placements, as the
+    # lookup's does (transformer._logits)
+    logits = x @ grad_as_placed(params["embed"]).T.to(x.dtype)
     logits = constrain(logits, ("batch", None, "vocab"))
     new_caches = None
     if caches is not None:

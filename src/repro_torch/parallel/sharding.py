@@ -322,6 +322,146 @@ def row_local(fn, n_out: int, summed: Tuple[int, ...] = ()):
     return call
 
 
+def split_last(x, n: int, e: int):
+    """``x`` ``[..., n*e]`` as ``[..., n, e]`` (heads out of a projection).
+    On a mesh the last dim is gathered first where its split would not
+    fall on whole groups of ``e`` (``n`` not divisible by the ranks it is
+    split over): DTensor cannot split a sharded dim into parts that cut
+    the shards. The result's gradient comes back on the result's own
+    placements (:func:`grad_as_placed`), which the backward's flatten
+    takes."""
+    from torch.distributed.tensor import DTensor
+    if not isinstance(x, DTensor):
+        return x.unflatten(-1, (n, e))
+    d = x.ndim - 1
+    parts = 1
+    for i, p in enumerate(x.placements):
+        if p.is_shard(d):
+            parts *= x.device_mesh.size(i)
+    if n % parts:
+        x = unshard(x, d)
+    return grad_as_placed(x.unflatten(-1, (n, e)))
+
+
+def merged(x, start: int, end: int):
+    """``x.flatten(start, end)``; on a mesh its gradient comes back on the
+    flattened tensor's own placements (:func:`grad_as_placed`), which the
+    backward's split into the merged dims takes (a gradient split inside a
+    merged dim's groups would not be)."""
+    return grad_as_placed(x.flatten(start, end))
+
+
+def block_of(shape, mesh, where: tuple):
+    """``(sizes, offsets)`` of this rank's block of a tensor of ``shape``
+    laid out as ``where`` (``Shard``/``Replicate`` placements) on
+    ``mesh``, as DTensor cuts it (``torch.chunk``'s even blocks, a dim
+    split over several mesh dims split in mesh-dim order). Plain integer
+    arithmetic: it runs under ``FakeTensorMode`` too."""
+    sizes, offs = list(shape), [0] * len(shape)
+    coord = mesh.get_coordinate()
+    for i, p in enumerate(where):
+        if p.is_shard():
+            d, n = p.dim, mesh.size(i)
+            chunk = -(-sizes[d] // n)
+            offs[d] += coord[i] * chunk
+            sizes[d] = max(0, min(chunk, sizes[d] - coord[i] * chunk))
+    return sizes, offs
+
+
+def _local_block(x, want: tuple, mesh):
+    """This rank's block of ``x`` laid out as ``want`` on ``mesh``: a
+    ``DTensor`` is redistributed to ``want``; a plain tensor (the same on
+    every rank) is cut to the block ``want`` gives this rank."""
+    from torch.distributed.tensor import DTensor
+    if isinstance(x, DTensor):
+        return redistribute(x, want).to_local()
+    size, off = block_of(x.shape, mesh, want)
+    return x[tuple(slice(o, o + n) for o, n in zip(off, size))]
+
+
+def _seq_block(cache):
+    """``(local tensor, offset of its block of dim 1)`` of a ``DTensor``
+    cache ``[B, S, ...]``."""
+    _, off = block_of(cache.shape, cache.device_mesh, cache.placements)
+    return cache.to_local(), off[1]
+
+
+def _value_placements(placements, seq_dims: int) -> tuple:
+    """A value's placements beside a ``[B, S, ...]`` cache's: rows split
+    as the cache's, the sequence whole; the value has ``seq_dims`` (0 or 1)
+    dims where the cache has its sequence dim."""
+    from torch.distributed.tensor import Replicate, Shard
+    out = []
+    for p in placements:
+        if not isinstance(p, Shard) or p.dim == 1:
+            out.append(Replicate())
+        elif p.dim == 0:
+            out.append(Shard(0))
+        else:
+            out.append(Shard(p.dim - 1 + seq_dims))
+    return tuple(out)
+
+
+def write_rows(cache, pos, value):
+    """``cache[b, pos[b]] = value[b]`` for every row ``b``, in place: a
+    decode step's cache write (``cache`` ``[B, S, ...]``, ``pos`` ``[B]``,
+    ``value`` ``[B, ...]``). On a mesh each rank writes into its own shard
+    of the cache: the rows it holds, at the positions inside its block of
+    the sequence (DTensor has no in-place strategy for an indexed write
+    into a sequence-split cache)."""
+    import torch
+    from torch.distributed.tensor import DTensor, Replicate
+    if not isinstance(cache, DTensor):
+        rows = torch.arange(cache.shape[0], device=cache.device)
+        cache[rows, pos.long()] = value
+        return
+    mesh = cache.device_mesh
+    lc, lo = _seq_block(cache)
+    rows_split = _value_placements(cache.placements, 0)
+    lv = _local_block(value, rows_split, mesh)
+    lp = _local_block(pos, tuple(p if p.is_shard(0) else Replicate()
+                                 for p in rows_split), mesh)
+    n = lc.shape[1]
+    if n == 0 or lc.shape[0] == 0:
+        return
+    rel = lp.long() - lo
+    inside = (rel >= 0) & (rel < n)
+    rel = rel.clamp(0, n - 1)
+    rows = torch.arange(lc.shape[0], device=lc.device)
+    keep = lc[rows, rel]
+    mask = inside.reshape(-1, *([1] * (keep.ndim - 1)))
+    lc[rows, rel] = torch.where(mask, lv.to(lc.dtype), keep)
+
+
+def write_seq(cache, value, slots=None):
+    """``cache[:, :t] = value`` (``slots=None``; ``t`` = ``value``'s dim 1)
+    or ``cache[:, slots] = value`` (``slots`` distinct positions), in
+    place: a prefill's cache fill. On a mesh each rank writes the positions
+    inside its block of the sequence into its own shard."""
+    import torch
+    from torch.distributed.tensor import DTensor
+    if not isinstance(cache, DTensor):
+        if slots is None:
+            cache[:, :value.shape[1]] = value
+        else:
+            cache[:, slots] = value
+        return
+    mesh = cache.device_mesh
+    lc, lo = _seq_block(cache)
+    lv = _local_block(value, _value_placements(cache.placements, 1), mesh)
+    n = lc.shape[1]
+    if n == 0 or lc.shape[0] == 0:
+        return
+    if slots is None:
+        slots = torch.arange(value.shape[1], device=lc.device)
+    rel = slots.long() - lo
+    # positions outside this rank's block land in a sink column, cut off
+    idx = torch.where((rel >= 0) & (rel < n), rel, n)
+    buf = torch.cat([lc, lc[:, :1]], dim=1)
+    buf[:, idx] = lv.to(lc.dtype)
+    lc.copy_(buf[:, :n])
+
+
 def grad_as_placed(x):
     """``x`` itself, except that the backward pass brings its gradient to
     ``x``'s placements before it flows on: an op before it (a view that

@@ -17,6 +17,7 @@ import math
 import torch
 
 from .. import models
+from ..models.counting import trips
 from ..models.params import cast_params
 from ..parallel.sharding import whole
 from .optimizer import AdamWConfig, adamw_update
@@ -61,7 +62,7 @@ def make_train_step(model_cfg, opt_cfg: AdamWConfig,
         else:
             mbs = _microbatches(batch, n)
         loss_sum = None
-        for mb in mbs:
+        for mb in trips(mbs, n, backward_inside=True):
             loss, metrics = loss_for(params, mb)
             # fp32 gradients accumulate in .grad across microbatches
             loss.backward()
