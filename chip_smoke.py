@@ -5,7 +5,7 @@ is right on an NVIDIA card. Run from the repository root:
     python3 chip_smoke.py
 
 Phases, each printing its own lines; any failure raises and exits non-zero.
-They run in the order 1-4, 6-14, 5: the timings come last, on the slabs the
+They run in the order 1-4, 6-15, 5: the timings come last, on the slabs the
 other phases colored.
 
 1. build    — compile the CUDA kernels from ``src/repro_torch/kernels/csrc``
@@ -44,7 +44,8 @@ other phases colored.
               scale-16 requests from 3 tenants, one RMAT-ER scale-18 stream
               per tenant (4 delta batches each), then drain, checkpoint,
               restore, and one more batch on the live and the restored
-              streams, whose colors must be identical;
+              streams, whose colors must be identical; it counts the
+              flushes that went through the batched program (``map``);
 9. distributed — ``strategy="distributed"`` on phase 3's scale-22 graph
               as 4 gloo ranks sharing the card (one process per rank, the
               payloads staged through pinned host memory): the
@@ -135,12 +136,30 @@ other phases colored.
               bytes exactly, the 1 x 1 card cell's held bytes and local
               matmul FLOPs exactly, its predicted peak printed beside the
               measured ``max_memory_allocated``. The workers launch no
-              kernel (their counts are summed: 0).
+              kernel (their counts are summed: 0);
+15. batched — ``plan.map``'s batched program (the graphs stacked into one
+              block-diagonal ``BatchedGraph``, each sweep one launch per
+              kernel for the whole batch) on the service's ``max_batch``
+              of graphs: 8 RMAT-ER scale-19 graphs (seeds 0-7, one
+              ``PlanShape``; the union is phase 3's size) under
+              ``fused_pallas`` and ``ell_pallas`` (concurrency 16384,
+              frontier ``"auto"``), each map bit-identical to
+              ``[plan(g) for g in gs]`` and to the other engine's map,
+              every coloring valid, each kernel's launches by the map
+              against the loop's (> 0, never more), the wall and device
+              busy share of map and loop; phase 2's exact checks on the
+              union's slab and edges; DATAFLOW ``fused_pallas`` on 8
+              RMAT-G scale-16 graphs, map equal to the loop.
 
 Ends with a ``{"kernels": [...]}`` line, the card's name and power limit,
 and the result line ``{"ok": true, "device": {...}}``. Imports no JAX and
 nothing of the JAX package. Exits non-zero, printing no result, without a
 card.
+
+``python3 chip_smoke.py --only main`` (or ``--only batched``) runs the
+build and phase 3 (or phase 15) alone and prints no result line: a short
+run to time the main path, e.g. against an older tree's ``src`` with this
+script copied into it.
 """
 from __future__ import annotations
 
@@ -168,6 +187,9 @@ SERVE_TENANTS = 3
 SCALE_SERVE = 16
 SCALE_SERVE_STREAM = 18
 SERVE_STREAM_BATCHES = 4    # 4,096 inserts + 1,024 deletes each
+BATCH_GRAPHS = 8            # phase 15: the service's max_batch
+SCALE_BATCH = 19            # RMAT-ER; the union is phase 3's size
+SCALE_BATCH_DATAFLOW = 16   # RMAT-G
 DIST_RANKS = 4              # phase 9: gloo ranks sharing the card
 SCALE_DIST_CPU = 16         # phase 9: RMAT-B, the card against the CPU
 DIST_TIMEOUT_S = 420        # a rank that fails or outlives this fails
@@ -695,7 +717,8 @@ def phase_serve(root):
     import shutil
     import numpy as np
     import torch
-    from repro_torch.core import ColoringSpec, rmat, validate_coloring
+    from repro_torch.core import (ColoringPlan, ColoringSpec, rmat,
+                                  validate_coloring)
     from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.serve.coloring import AsyncColoringService
 
@@ -724,29 +747,46 @@ def phase_serve(root):
                max_queue_depth=256, device="cuda")
     reset_launch_counts()
     svc = AsyncColoringService(**cfg)
-    t = time.perf_counter()
-    for t_, g in streams.items():
-        svc.open_stream(t_, g, sspec)
-    torch.cuda.synchronize()
-    log(f"phase 8 opened {len(streams)} streams (cold starts) in "
-        f"{time.perf_counter() - t:.2f} s")
-    t0 = time.perf_counter()
-    svc.start()
+    # count the flushes that go through the batched program (plan.map)
+    maps, plan_map = [], ColoringPlan.map
+
+    def counted_map(self, graphs):
+        graphs = list(graphs)
+        maps.append(len(graphs))
+        return plan_map(self, graphs)
+
+    ColoringPlan.map = counted_map
     try:
-        handles, dhandles = [], []
-        per_batch = SERVE_REQUESTS // SERVE_STREAM_BATCHES
-        for i, g in enumerate(graphs):
-            handles.append(svc.submit(g, tenant=tenants[i % SERVE_TENANTS]))
-            if (i + 1) % per_batch == 0:
-                b = (i + 1) // per_batch - 1
-                for t_ in tenants:
-                    dhandles.append(svc.submit_delta(t_, *deltas[t_][b]))
-        served = [h.result(timeout=600) for h in handles]
-        dserved = [h.result(timeout=600) for h in dhandles]
+        t = time.perf_counter()
+        for t_, g in streams.items():
+            svc.open_stream(t_, g, sspec)
+        torch.cuda.synchronize()
+        log(f"phase 8 opened {len(streams)} streams (cold starts) in "
+            f"{time.perf_counter() - t:.2f} s")
+        t0 = time.perf_counter()
+        svc.start()
+        try:
+            handles, dhandles = [], []
+            per_batch = SERVE_REQUESTS // SERVE_STREAM_BATCHES
+            for i, g in enumerate(graphs):
+                handles.append(svc.submit(g,
+                                          tenant=tenants[i % SERVE_TENANTS]))
+                if (i + 1) % per_batch == 0:
+                    b = (i + 1) // per_batch - 1
+                    for t_ in tenants:
+                        dhandles.append(svc.submit_delta(t_,
+                                                         *deltas[t_][b]))
+            served = [h.result(timeout=600) for h in handles]
+            dserved = [h.result(timeout=600) for h in dhandles]
+        finally:
+            svc.stop()
+        svc.drain()
     finally:
-        svc.stop()
-    svc.drain()
+        ColoringPlan.map = plan_map
     wall = time.perf_counter() - t0
+    # the service marks each request its flush served through plan.map
+    assert sum(r.batched for r in served) == sum(maps), \
+        "the service's batched flags disagree with the plan.map calls"
     for g, r in zip(graphs, served):
         assert validate_coloring(g, r.report.colors), "served coloring invalid"
     for t_ in tenants:
@@ -765,6 +805,9 @@ def phase_serve(root):
         f"rate {snap['cache_hit_rate']:.3f} ({cum['cache_hits']} hits, "
         f"{cum['cache_misses']} misses); program builds {cum['retraces']}; "
         f"seed sizes {[d.result.seed_size for d in dserved]}")
+    log(f"  {len(maps)} of {cum['flushes']} flushes went through the "
+        f"batched program (plan.map), {sum(maps)} requests, batch sizes "
+        f"{sorted(maps)}")
 
     shutil.rmtree(root, ignore_errors=True)
     step = svc.checkpoint(root)
@@ -2330,8 +2373,164 @@ def phase_dryrun(card: str, sharded: dict):
     return counts
 
 
-def main() -> int:
+# --------------------------------------------------------------------------
+# phase 15: batched plan.map
+# --------------------------------------------------------------------------
+def union_graph(gs):
+    """The block-diagonal union of same-size host graphs as one host Graph:
+    its ELL slab is the [B*V, D] slab the batched sweep hands the kernels."""
+    import numpy as np
+    from repro_torch.core import Graph
+    V = gs[0].num_vertices
+    ptrs = [gs[0].row_ptr]
+    for g in gs[1:]:
+        ptrs.append(g.row_ptr[1:] + ptrs[-1][-1])
+    cols = [g.col_idx + np.int32(b * V) for b, g in enumerate(gs)]
+    return Graph(V * len(gs), np.concatenate(ptrs), np.concatenate(cols))
+
+
+def phase_batched(errors):
+    """Phase 15: ``plan.map``'s batched program against the per-graph loop
+    on the service's max_batch of graphs. Returns the map runs' launches."""
+    from concurrent.futures import ThreadPoolExecutor
+    import numpy as np
     import torch
+    from repro_torch.core import (ColoringSpec, PlanShape, compile_plan,
+                                  greedy_color, pad_bucket, rmat,
+                                  validate_coloring)
+    from repro_torch.core.engine import num_color_words
+    from repro_torch.kernels import (conflict_mask, conflict_mask_plain,
+                                     launch_counts, reset_launch_counts)
+
+    def counted(fn):
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t, launch_counts()
+
+    def generate(family, scale):
+        # R-MAT in threads: each call seeds its own generator, and numpy
+        # releases the GIL in the bulk draws and the sort
+        with ThreadPoolExecutor(BATCH_GRAPHS) as ex:
+            return list(ex.map(lambda s: rmat.paper_graph(family, scale,
+                                                          seed=s),
+                               range(BATCH_GRAPHS)))
+
+    t = time.perf_counter()
+    gs = generate("RMAT-ER", SCALE_BATCH)
+    shape = PlanShape(
+        num_vertices=gs[0].num_vertices,
+        padded_edges=pad_bucket(max(g.num_directed_edges for g in gs)),
+        max_degree=max(g.max_degree() for g in gs))
+    words = num_color_words(shape.max_degree + 1)
+    log(f"phase 15 host: {BATCH_GRAPHS} RMAT-ER scale-{SCALE_BATCH} graphs "
+        f"in {time.perf_counter() - t:.1f} s; plan shape {shape}, W={words}; "
+        f"union {BATCH_GRAPHS * shape.num_vertices} vertices, "
+        f"{BATCH_GRAPHS * shape.padded_edges} edge slots")
+    map_total = {}
+    mapped = None
+    for engine in ("fused_pallas", "ell_pallas"):
+        plan = compile_plan(ColoringSpec(strategy="iterative", engine=engine,
+                                         concurrency=CONCURRENCY),
+                            shape, device="cuda")
+        loop, loop_wall, loop_counts = counted(lambda: [plan(g) for g in gs])
+        reps, map_wall, map_counts = counted(lambda: plan.map(gs))
+        assert plan.traces == 2, f"plan.traces={plan.traces}"
+        for b, (g, one, many) in enumerate(zip(gs, loop, reps)):
+            assert validate_coloring(g, many.colors), f"{engine} graph {b}"
+            assert same_report(many, one), \
+                f"{engine}: map differs from plan(g) on graph {b}"
+        if mapped is not None:
+            for b, (a, c) in enumerate(zip(mapped, reps)):
+                assert same_report(a, c), f"ell_pallas map differs, {b}"
+        mapped = reps
+        log(f"phase 15 {engine}: map == loop on all {BATCH_GRAPHS} graphs "
+            f"(colors, rounds, conflicts, sweeps, frontier); rounds "
+            f"{[r.rounds for r in reps]}, sweeps {[r.sweeps for r in reps]}")
+        for name in loop_counts:
+            log(f"  {name}: map {map_counts[name]} launches, loop "
+                f"{loop_counts[name]}")
+            assert map_counts[name] <= loop_counts[name], \
+                f"{engine}: map launched {name} more often than the loop"
+            map_total[name] = map_total.get(name, 0) + map_counts[name]
+        used = ("round_fused" if engine == "fused_pallas" else "firstfit",
+                "conflict_mask")
+        for name in used:
+            assert map_counts[name] > 0, f"{engine}: map never ran {name}"
+        if engine == "fused_pallas":
+            busy_loop, _ = device_busy(lambda: [plan(g) for g in gs])
+            busy_map, rows = device_busy(lambda: plan.map(gs))
+            log(f"phase 15 {engine} wall: loop {loop_wall:.3f} s, map "
+                f"{map_wall:.3f} s; device busy: loop "
+                f"{busy_text(busy_loop, loop_wall)}, map "
+                f"{busy_text(busy_map, map_wall)}")
+            for name, calls, ms in rows[:8]:
+                log(f"  map device time: {ms:9.3f} ms in {calls:5d} calls of "
+                    f"{name[:70]}")
+        else:
+            log(f"phase 15 {engine} wall: loop {loop_wall:.3f} s, map "
+                f"{map_wall:.3f} s")
+
+    # phase 2 at the batched shapes: the union slab from the map's colors
+    t = time.perf_counter()
+    union = union_graph(gs)
+    colors = np.concatenate([r.colors for r in mapped])
+    check_real_slab("batched union", union, colors, words, errors)
+    dg = union.to_device(device="cuda")
+    cpad = torch.cat([torch.from_numpy(colors % 4).to("cuda"),
+                      torch.zeros(1, dtype=torch.int32, device="cuda")])
+    cs, cd = cpad[torch.clamp(dg.src, max=union.num_vertices)], \
+        cpad[torch.clamp(dg.dst, max=union.num_vertices)]
+    got = conflict_mask(cs, cd, dg.src, dg.dst)
+    want = conflict_mask_plain(cs, cd, dg.src, dg.dst)
+    torch.cuda.synchronize()
+    err = max_abs_err(got, want)
+    errors["conflict_mask"] = max(errors["conflict_mask"], err)
+    log(f"phase 2 conflict_mask [batched union, colors mod 4] "
+        f"shape={tuple(got.shape)} max_abs_err={err}")
+    assert err == 0, "conflict_mask disagrees on the batched union"
+    log(f"phase 15 kernels vs plain on the batched union: ok (exact; "
+        f"{time.perf_counter() - t:.1f} s)")
+
+    # DATAFLOW on the batch: each graph sweeps to its own depth
+    gg = generate("RMAT-G", SCALE_BATCH_DATAFLOW)
+    plan = compile_plan(ColoringSpec(strategy="dataflow",
+                                     engine="fused_pallas"),
+                        PlanShape(gg[0].num_vertices,
+                                  pad_bucket(max(g.num_directed_edges
+                                                 for g in gg)),
+                                  max(g.max_degree() for g in gg)),
+                        device="cuda")
+    loop, loop_wall, loop_counts = counted(lambda: [plan(g) for g in gg])
+    reps, map_wall, map_counts = counted(lambda: plan.map(gg))
+    for b, (g, one, many) in enumerate(zip(gg, loop, reps)):
+        assert validate_coloring(g, many.colors), f"dataflow graph {b}"
+        assert same_report(many, one), f"dataflow: map differs on graph {b}"
+    assert np.array_equal(reps[0].colors, greedy_color(gg[0])), \
+        "batched DATAFLOW differs from serial greedy"
+    assert 0 < map_counts["round_fused"] <= loop_counts["round_fused"]
+    map_total["round_fused"] += map_counts["round_fused"]
+    log(f"phase 15 dataflow RMAT-G scale {SCALE_BATCH_DATAFLOW} x "
+        f"{BATCH_GRAPHS}: map == loop, graph 0 == serial greedy; sweeps "
+        f"{[r.sweeps for r in reps]}; round_fused map "
+        f"{map_counts['round_fused']} launches, loop "
+        f"{loop_counts['round_fused']}; wall loop {loop_wall:.3f} s, map "
+        f"{map_wall:.3f} s")
+    for name, n in map_total.items():
+        assert n > 0, f"kernel {name} was never launched by a batched map"
+    log(f"phase 15 batched: ok; map launches {map_total}")
+    return map_total
+
+
+def main(argv=None) -> int:
+    import argparse
+    import torch
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--only", choices=("main", "batched"),
+                    help="run the build and this phase alone, no result")
+    only = ap.parse_args(argv).only
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
               "needs an NVIDIA card", file=sys.stderr)
@@ -2363,6 +2562,10 @@ def main() -> int:
         if "registers" in line or "Compiling entry" in line:
             log("  ptxas: " + line.strip())
 
+    if only == "batched":
+        phase_batched({k.name: 0 for k in KERNELS})
+        return 0
+
     # ---- host graphs for the main path ----------------------------------
     t = time.perf_counter()
     graphs = [rmat.paper_graph("RMAT-ER", SCALE_MAIN, seed=s) for s in (0, 1)]
@@ -2379,17 +2582,18 @@ def main() -> int:
 
     # ---- phase 2: kernels vs plain --------------------------------------
     errors = {k.name: 0 for k in KERNELS}
-    for kernel, case, got, want in kernel_cases(
+    for kernel, case, got, want in ([] if only else kernel_cases(
             dev, shape.num_vertices, shape.max_degree, words,
             shape.padded_edges, gb.num_vertices, gb.max_degree(),
-            skew_words):
+            skew_words)):
         torch.cuda.synchronize()
         err = max_abs_err(got, want)
         errors[kernel] = max(errors[kernel], err)
         log(f"phase 2 {kernel} [{case}] shape={tuple(got.shape)} "
             f"max_abs_err={err}")
         assert err == 0, f"{kernel} [{case}] disagrees with its plain version"
-    log("phase 2 kernels vs plain: ok (exact)")
+    if not only:
+        log("phase 2 kernels vs plain: ok (exact)")
 
     # ---- phase 3: the main path -----------------------------------------
     spec = ColoringSpec(strategy="iterative", engine="fused_pallas",
@@ -2430,11 +2634,16 @@ def main() -> int:
     torch.cuda.synchronize()
     layout_s = time.perf_counter() - t
     busy, rows = device_busy(lambda: plan(graphs[0]))
-    t = time.perf_counter()
-    plan(graphs[0])
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t
-    log(f"phase 3 seed 0 repeat: host wall {wall:.3f} s; device busy "
+    walls = []
+    for _ in range(3):
+        t = time.perf_counter()
+        plan(graphs[0])
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t)
+    wall = statistics.median(walls)
+    log(f"phase 3 seed 0 repeats: host walls "
+        f"{', '.join(f'{w:.3f}' for w in walls)} s")
+    log(f"phase 3 seed 0 repeat: host wall {wall:.3f} s (median); device busy "
         f"{busy_text(busy, wall)}; of the wall, Graph.to_device "
         f"{layout_s:.3f} s; "
         f"host graph generation {gen_s / 2:.1f} s per graph; "
@@ -2442,6 +2651,8 @@ def main() -> int:
     for name, calls, ms in rows[:12]:
         log(f"  device time: {ms:9.3f} ms in {calls:5d} calls of {name[:70]}")
     log("phase 3 main path: ok")
+    if only == "main":
+        return 0
 
     # ---- phase 4: skew and exactness ------------------------------------
     log(f"phase 4 RMAT-B scale {SCALE_SKEW}: V={gb.num_vertices} "
@@ -2488,11 +2699,13 @@ def main() -> int:
     counts_train = phase_train()
     counts_sharded, sharded = phase_sharded(card)
     counts_dryrun = phase_dryrun(card, sharded)
+    counts_batched = phase_batched(errors)
     by_path = {"main": main_counts, "models": counts_models,
                "stream": counts_stream, "serve": counts_serve,
                "distributed": counts_dist, "analysis": counts_analysis,
                "lm": counts_lm, "train": counts_train,
-               "sharded": counts_sharded, "dryrun": counts_dryrun}
+               "sharded": counts_sharded, "dryrun": counts_dryrun,
+               "batched": counts_batched}
 
     # ---- phase 5: timings at the main path's shapes ---------------------
     dg, c, cpad, V, D, runs = real_slabs(graphs[0], reports[0].colors, words)

@@ -42,7 +42,7 @@ from .distributed import PARTITION_SCHEMES, ProcessMesh
 from .frontier import (FRONTIER_MODES, frontier_capacities,
                        resolve_frontier)
 from .graph import (BipartiteGraph, DeviceGraph, DeviceSpec, Graph,
-                    pad_bucket, resolve_device)
+                    pad_bucket, resolve_device, stack_device_graphs)
 from .ordering import ORDERINGS
 
 _LOWERINGS = ("auto", "wedge", "square")
@@ -285,7 +285,8 @@ class ColoringStrategy:
     :class:`DeviceGraph` into a :class:`RawColoring`
     (:meth:`device_program`). The base class derives one-shot execution
     (:meth:`oneshot`); :class:`ColoringPlan` builds the program once and
-    feeds it per-call state through :meth:`plan_state`. Host-level
+    feeds it per-call state through :meth:`plan_state`, and builds
+    ``plan.map``'s program through :meth:`compile_batched`. Host-level
     strategies (the distributed strategy partitions on the host) override
     :meth:`oneshot` and :meth:`compile` instead and set ``wants = "host"``.
     """
@@ -336,6 +337,72 @@ class ColoringStrategy:
             f"strategy {self.name!r} consumes a DeviceGraph; plans build "
             "its device_program")
 
+    def compile_batched(self, spec: ColoringSpec, statics: "PlanShape",
+                        trace_hook: Callable[[], None]) -> Callable:
+        """The ``plan.map`` program: canonical DeviceGraphs of one
+        envelope -> one :class:`RawColoring` per graph. ``trace_hook`` runs
+        once, when the program is built (the plan counts it). The
+        reference vmaps :meth:`device_program`; this default serves the
+        batch with it graph by graph, and ``"iterative"`` and
+        ``"dataflow"`` override it with one batched program."""
+        trace_hook()
+        prog = self.device_program(spec, get_backend(spec.engine))
+        return lambda graphs: [prog(dg) for dg in graphs]
+
+
+def _iterative_program(spec: ColoringSpec, backend: MexBackend,
+                       seed_frontier: bool = False) -> Callable:
+    """``(graphs[, colors0, pending0]) -> [RawColoring]``: the round loop
+    of iterative.py over the stack of same-envelope DeviceGraphs (one
+    graph is a batch of one); the warm start is ``[B, V]`` or, for one
+    graph, ``[V]``."""
+    from .iterative import _iterative_impl
+
+    def run(graphs, colors0=None, pending0=None):
+        bg = stack_device_graphs(graphs)
+        fcv, fce = _frontier_caps(spec, bg)
+        colors, rnd, conf, sweeps, fronts, left = _iterative_impl(
+            bg, colors0, pending0, concurrency=int(spec.concurrency),
+            max_rounds=int(spec.max_rounds),
+            max_sweeps=int(spec.max_sweeps), backend=backend,
+            color_bound=int(spec.color_bound),
+            frontier_cap_v=fcv, frontier_cap_e=fce,
+            seed_frontier=seed_frontier)
+        return [RawColoring(colors[b], int(rnd[b]), conf[b], sweeps[b],
+                            bool(left[b]), fronts[b])
+                for b in range(bg.batch)]
+
+    return run
+
+
+def _dataflow_program(spec: ColoringSpec, backend: MexBackend) -> Callable:
+    """``graphs -> [RawColoring]``: the fixpoint of dataflow.py over the
+    stack of same-envelope DeviceGraphs (one graph is a batch of one)."""
+    from .dataflow import _dataflow_impl
+
+    def run(graphs):
+        bg = stack_device_graphs(graphs)
+        fcv, fce = _frontier_caps(spec, bg)
+        colors, n, changed, nslab = _dataflow_impl(
+            bg, max_sweeps=int(spec.max_sweeps), backend=backend,
+            color_bound=int(spec.color_bound),
+            frontier_cap_v=fcv, frontier_cap_e=fce)
+        return [RawColoring(colors[b], 1, np.zeros(1, np.int32),
+                            np.array([n[b]], np.int32), bool(changed[b]),
+                            np.array([nslab[b]], np.int32))
+                for b in range(bg.batch)]
+
+    return run
+
+
+def _frontier_caps(spec: ColoringSpec, g) -> Tuple[int, int]:
+    """The static frontier slab capacities of ``spec`` on a graph's
+    envelope (a BatchedGraph's is each member's)."""
+    return resolve_frontier(
+        spec.frontier, int(spec.frontier_capacity),
+        num_vertices=g.num_vertices, padded_edges=g.padded_edges,
+        max_degree=g.max_degree, has_inc=g.has_frontier)
+
 
 _REGISTRY: Dict[str, ColoringStrategy] = {}
 
@@ -375,22 +442,13 @@ class IterativeStrategy(ColoringStrategy):
     name = "iterative"
 
     def device_program(self, spec, backend):
-        from .iterative import _iterative_impl
+        prog = _iterative_program(spec, backend)
+        return lambda dg: prog([dg])[0]
 
-        def run(dg):
-            fcv, fce = resolve_frontier(
-                spec.frontier, int(spec.frontier_capacity),
-                num_vertices=dg.num_vertices, padded_edges=dg.padded_edges,
-                max_degree=dg.max_degree, has_inc=dg.has_frontier)
-            colors, rnd, conf, sweeps, fronts, left = _iterative_impl(
-                dg, concurrency=int(spec.concurrency),
-                max_rounds=int(spec.max_rounds),
-                max_sweeps=int(spec.max_sweeps), backend=backend,
-                color_bound=int(spec.color_bound),
-                frontier_cap_v=fcv, frontier_cap_e=fce)
-            return RawColoring(colors, rnd, conf, sweeps, left, fronts)
-
-        return run
+    def compile_batched(self, spec, statics, trace_hook):
+        """One batched round loop over the stacked graphs."""
+        trace_hook()
+        return _iterative_program(spec, get_backend(spec.engine))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -402,22 +460,13 @@ class DataflowStrategy(ColoringStrategy):
     name = "dataflow"
 
     def device_program(self, spec, backend):
-        from .dataflow import _dataflow_impl
+        prog = _dataflow_program(spec, backend)
+        return lambda dg: prog([dg])[0]
 
-        def run(dg):
-            fcv, fce = resolve_frontier(
-                spec.frontier, int(spec.frontier_capacity),
-                num_vertices=dg.num_vertices, padded_edges=dg.padded_edges,
-                max_degree=dg.max_degree, has_inc=dg.has_frontier)
-            colors, n, changed, nslab = _dataflow_impl(
-                dg, max_sweeps=int(spec.max_sweeps), backend=backend,
-                color_bound=int(spec.color_bound),
-                frontier_cap_v=fcv, frontier_cap_e=fce)
-            return RawColoring(colors, 1, np.zeros(1, np.int32),
-                               np.array([n], np.int32), changed,
-                               np.array([nslab], np.int32))
-
-        return run
+    def compile_batched(self, spec, statics, trace_hook):
+        """One batched sweep loop over the stacked graphs."""
+        trace_hook()
+        return _dataflow_program(spec, get_backend(spec.engine))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -445,23 +494,9 @@ class RecolorStrategy(ColoringStrategy):
     supports_map = False
 
     def device_program(self, spec, backend):
-        from .iterative import _iterative_impl
-
-        def run(dg, colors0=None, pending0=None):
-            fcv, fce = resolve_frontier(
-                spec.frontier, int(spec.frontier_capacity),
-                num_vertices=dg.num_vertices, padded_edges=dg.padded_edges,
-                max_degree=dg.max_degree, has_inc=dg.has_frontier)
-            colors, rnd, conf, sweeps, fronts, left = _iterative_impl(
-                dg, colors0, pending0, concurrency=int(spec.concurrency),
-                max_rounds=int(spec.max_rounds),
-                max_sweeps=int(spec.max_sweeps), backend=backend,
-                color_bound=int(spec.color_bound),
-                frontier_cap_v=fcv, frontier_cap_e=fce,
-                seed_frontier=True)
-            return RawColoring(colors, rnd, conf, sweeps, left, fronts)
-
-        return run
+        prog = _iterative_program(spec, backend, seed_frontier=True)
+        return lambda dg, colors0=None, pending0=None: prog(
+            [dg], colors0, pending0)[0]
 
     def plan_state(self, spec, statics, colors=None, seed=None):
         """Host arrays ``(colors [V] int32, seed [V] bool)``: no colors is
@@ -679,21 +714,24 @@ class ColoringPlan:
     per-call state for strategies that take it: ``"recolor"``'s
     ``colors=``/``seed=``);
     ``plan.map([g0, g1, ...])`` -> one report per graph (strategies with
-    ``supports_map``). In this port
-    ``map`` runs the plan's program once per graph (reports as the
-    reference's vmapped ``map`` returns them, wall time amortized over the
-    batch); a batched program is later work (ROADMAP A16).
+    ``supports_map``), through ONE batched program
+    (:meth:`ColoringStrategy.compile_batched`): the graphs are stacked into
+    one block-diagonal :class:`repro_torch.core.graph.BatchedGraph` and
+    each sweep launches each kernel once for the whole batch. Reports
+    equal the reference's vmapped ``map`` (and the per-graph calls); wall
+    time is amortized over the batch.
 
     ``plan.findings`` holds the analyzer's findings when
     ``compile_plan(verify=...)`` built the plan (None otherwise).
 
-    ``plan.traces`` counts program builds. The program is built at the
-    first call and pinned to the envelope: every served graph is laid out
+    ``plan.traces`` counts program builds. Each program is built at its
+    first use and pinned to the envelope: every served graph is laid out
     with the same shapes and static fields, so the count stays at 1 however
-    many same-bucket graphs are served (``map`` included); the tests pin
-    this. A distributed ``wire="auto"`` plan builds its full-wire spill
-    program once, the first time a served graph overflows the halo
-    capacity (2 builds).
+    many same-bucket graphs are served, and at 2 once ``map`` has built the
+    batched program too, whatever the batch sizes (the reference's jit
+    traces once per batch size); the tests pin this. A distributed
+    ``wire="auto"`` plan builds its full-wire spill program once, the
+    first time a served graph overflows the halo capacity (2 builds).
     """
 
     def __init__(self, spec: ColoringSpec, graph_or_shape,
@@ -713,6 +751,7 @@ class ColoringPlan:
         # what compile_plan(verify=...) found (None: not verified)
         self.findings: Optional[list] = None
         self._program: Optional[Callable[[DeviceGraph], RawColoring]] = None
+        self._batched: Optional[Callable] = None
         self._executor: Optional[Callable] = None
         if self.strategy.wants == "host" and not self._degenerate:
             self._executor = self.strategy.compile(
@@ -805,9 +844,10 @@ class ColoringPlan:
                              self.strategy.name, perm, t0)
 
     def map(self, graphs: Sequence) -> list:
-        """Color a batch of same-bucket graphs; one report per graph
-        (original vertex ids, per-graph histories, wall time amortized
-        over the batch)."""
+        """Color a batch of same-bucket graphs through ONE call of the
+        plan's batched program (built at the first ``map``, for any batch
+        size); one report per graph (original vertex ids, per-graph
+        histories, wall time amortized over the batch)."""
         if not self.strategy.supports_map:
             raise NotImplementedError(
                 f"strategy {self.strategy.name!r} does not support batched "
@@ -816,15 +856,17 @@ class ColoringPlan:
         if not graphs:
             return []
         t0 = time.perf_counter()
-        canons = [self._canonicalize(g) for g in graphs]
+        canons, perms = zip(*(self._canonicalize(g) for g in graphs))
         if self._degenerate:
             return [_trivial_report(self.spec, self.statics.num_vertices,
                                     t0, batch_denom=len(graphs))
                     for _ in graphs]
-        raws = [(self._run(dg), perm) for dg, perm in canons]
+        if self._batched is None:
+            self._batched = self.strategy.compile_batched(
+                self.spec, self.statics, self._count_trace)
         return [_build_report(raw, self.spec, self.strategy.name, perm, t0,
                               batch_denom=len(graphs))
-                for raw, perm in raws]
+                for raw, perm in zip(self._batched(list(canons)), perms)]
 
 
 def _spec_device(spec: ColoringSpec, device: DeviceSpec) -> DeviceSpec:

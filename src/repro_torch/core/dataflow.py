@@ -27,7 +27,7 @@ import torch
 from ..kernels.ops import report_path, report_state
 from .engine import EngineSpec, SweepSpec, fixpoint_iterate, fixpoint_sweep
 from .frontier import compact_frontier, frontier_counts
-from .graph import DeviceGraph, DeviceSpec
+from .graph import BatchedGraph, DeviceGraph, DeviceSpec, batch_index
 
 
 @dataclasses.dataclass
@@ -43,36 +43,48 @@ class DataflowResult:
 
 def _scatter_any(index: torch.Tensor, flags: torch.Tensor,
                  size: int) -> torch.Tensor:
-    """[size] bool: OR of ``flags`` per ``index`` (index ``size`` = sink)."""
-    out = torch.zeros((size + 1,), dtype=torch.int32, device=flags.device)
-    out.scatter_reduce_(0, index.long(), flags.to(torch.int32), "amax")
-    return out[:size].bool()
+    """[B, size] bool: OR of ``flags`` per (graph, ``index``) over [B, n]
+    operands (index ``size`` = sink)."""
+    out = torch.zeros((index.shape[0], size + 1), dtype=torch.int32,
+                      device=flags.device)
+    out.scatter_reduce_(1, index.long(), flags.to(torch.int32), "amax")
+    return out[:, :size].bool()
 
 
-def _dataflow_impl(g: DeviceGraph, *, max_sweeps: int, backend,
+def _dataflow_impl(bg: BatchedGraph, *, max_sweeps: int, backend,
                    color_bound: int = 0, frontier_cap_v: int = 0,
                    frontier_cap_e: int = 0):
-    """Returns ``(colors, sweeps, still_changing, slab_sweeps)``."""
-    V = g.num_vertices
-    dev = g.device
-    max_colors = g.max_degree + 1
+    """The fixpoint over a batch of B graphs (one graph is a batch of one),
+    with the reference's ``vmap`` semantics: each graph sweeps to its own
+    fixpoint and stays frozen from then on, and each takes its own branch
+    per sweep (the slab sweep when its changed set and their dependents
+    fit the slab, else the full sweep). One engine launch per branch and
+    sweep for the whole union; the host syncs are per batch. Returns
+    ``(colors [B, V], sweeps [B], still_changing [B], slab_sweeps [B])``:
+    colors a device tensor, the rest host arrays."""
+    B, V = bg.batch, bg.num_vertices
+    BV = B * V
+    dev = bg.device
+    max_colors = bg.max_degree + 1
     if color_bound > 0:
         max_colors = min(max_colors, color_bound)
-    mex = backend.bind(num_vertices=V, max_colors=max_colors,
-                       ell_slot=g.ell_slot, ell_width=g.ell_width,
-                       max_degree=g.max_degree)
+    mex = backend.bind(
+        num_vertices=BV, max_colors=max_colors,
+        ell_slot=None if bg.ell_slot is None else bg.ell_slot.reshape(-1),
+        ell_width=bg.ell_width, max_degree=bg.max_degree)
     # dependency edges: only smaller-index neighbors forbid a color
-    dep = g.dst < g.src  # padding (src == dst == V) excluded
-    spec = SweepSpec(key_v=torch.where(dep, g.src, V),
-                     dyn_idx=g.dst, dyn=dep,
-                     static_c=torch.zeros_like(g.dst))
-    use_frontier = frontier_cap_v > 0 and g.has_frontier
-    if not use_frontier:
+    dep = (bg.dst < bg.src).reshape(-1)  # padding (src == dst == V) excluded
+    gdst = batch_index(bg.dst, V + 1)
+    key_v = torch.where(dep, batch_index(bg.src, V), BV)
+    cap_v, cap_e = frontier_cap_v, frontier_cap_e
+    if not (cap_v > 0 and bg.has_frontier):
+        spec = SweepSpec(key_v=key_v, dyn_idx=gdst, dyn=dep,
+                         static_c=torch.zeros_like(gdst))
         colors, n, changed = fixpoint_sweep(
-            mex, spec, torch.zeros((V,), dtype=torch.int32, device=dev),
-            torch.ones((V,), dtype=torch.bool, device=dev),
+            mex, spec, torch.zeros((B, V), dtype=torch.int32, device=dev),
+            torch.ones((B, V), dtype=torch.bool, device=dev),
             max_sweeps=max_sweeps)
-        return colors, n, changed, 0
+        return colors, n, changed, np.zeros(B, np.int32)
 
     # Frontier (active-set) sweeps: per sweep, compact the changed
     # vertices' rows to find their dependents, compact the dependents'
@@ -80,53 +92,78 @@ def _dataflow_impl(g: DeviceGraph, *, max_sweeps: int, backend,
     # when they overflow the static capacities, so iterates (and the sweep
     # count) stay bit-identical to the full path.
     mex_slab = backend.bind_slab(
-        capacity=frontier_cap_v, max_colors=max_colors,
-        ell_width=g.max_degree, max_degree=g.max_degree)
-    cap_v, cap_e = frontier_cap_v, frontier_cap_e
+        capacity=B * cap_v, max_colors=max_colors,
+        ell_width=bg.max_degree, max_degree=bg.max_degree)
 
-    def full_sweep(cpad):
-        key_c = torch.where(dep, cpad[spec.dyn_idx], spec.static_c)
-        new = mex(spec.key_v, key_c)
-        return torch.cat([new, cpad[V:]]), new != cpad[:V], 0
+    def full_sweep(cpad, chg, part):
+        key_c = torch.where(dep, cpad.reshape(-1)[gdst],
+                            torch.zeros_like(gdst))
+        old = cpad[:, :V]
+        new = torch.where(part[:, None], mex(key_v, key_c).view(B, V), old)
+        return (torch.cat([new, cpad[:, V:]], 1),
+                torch.where(part[:, None], new != old, chg))
 
-    def slab_sweep(cpad, active):
-        slab = compact_frontier(active, g.inc_ptr, g.dst, cap_v, cap_e)
+    def slab_sweep(cpad, chg, active, part):
+        slab = compact_frontier(active, bg.inc_ptr, bg.dst, cap_v, cap_e)
         forb = (slab.src < V) & (slab.dst < slab.src)
-        key_c = torch.where(forb, cpad[slab.dst], torch.zeros_like(slab.dst))
-        mexv = mex_slab(torch.where(forb, slab.owner, cap_v), key_c,
-                        slab.slot)
+        key_c = torch.where(forb, cpad.gather(1, slab.dst.long()),
+                            torch.zeros_like(slab.dst))
+        mexv = mex_slab(
+            torch.where(forb.reshape(-1), batch_index(slab.owner, cap_v),
+                        B * cap_v),
+            key_c.reshape(-1), slab.slot.reshape(-1)).view(B, cap_v)
         live = slab.vert < V
         row = torch.clamp(slab.vert, max=V)
-        chg_new = _scatter_any(row, live & (mexv != cpad[row]), V)
-        buf = torch.cat([cpad, cpad.new_zeros(1)])
-        buf[torch.where(live, slab.vert, V + 1)] = mexv
-        return buf[:V + 1], chg_new, 1
+        chg_new = _scatter_any(
+            row, live & (mexv != cpad.gather(1, row.long())), V)
+        sink = B * (V + 1)
+        buf = torch.cat([cpad.reshape(-1), cpad.new_zeros(1)])
+        buf[torch.where(live.reshape(-1), batch_index(slab.vert, V + 1),
+                        sink)] = mexv.reshape(-1)
+        return (buf[:sink].view(B, V + 1),
+                torch.where(part[:, None], chg_new, chg))
 
-    def active_sweep(cpad, chg):
-        # dependents of the changed set: one compaction of the changed rows
-        dslab = compact_frontier(chg, g.inc_ptr, g.dst, cap_v, cap_e)
-        dep_e = (dslab.src < V) & (dslab.dst > dslab.src)
-        active = _scatter_any(dslab.dst, dep_e, V)
-        nv, ne = (int(x) for x in frontier_counts(active, g.inc_ptr))
-        if nv <= cap_v and ne <= cap_e:
-            report_path("active sweep")
-            return slab_sweep(cpad, active)
-        report_path("slab spill")
-        return full_sweep(cpad)
-
-    cpad = torch.zeros((V + 1,), dtype=torch.int32, device=dev)
-    chg = torch.ones((V,), dtype=torch.bool, device=dev)
+    cpad = torch.zeros((B, V + 1), dtype=torch.int32, device=dev)
+    chg = torch.ones((B, V), dtype=torch.bool, device=dev)
     report_state(cpad, chg)
-    n, still, nslab = 0, True, 0
-    while still and n < max_sweeps:
-        fits = False
-        if n > 0:
-            nc, nce = (int(x) for x in frontier_counts(chg, g.inc_ptr))
-            fits = nc <= cap_v and nce <= cap_e
-        cpad, chg, used = active_sweep(cpad, chg) if fits else full_sweep(cpad)
-        still = bool(chg.any())
-        n, nslab = n + 1, nslab + used
-    return cpad[:V], n, still, nslab
+    still = np.ones(B, np.bool_)
+    n = np.zeros(B, np.int32)
+    nslab = np.zeros(B, np.int32)
+    k = 0
+    while still.any() and k < max_sweeps:
+        fits = np.zeros(B, np.bool_)
+        if k > 0:
+            nc, nce = np.array(torch.stack(
+                frontier_counts(chg, bg.inc_ptr)).tolist())
+            fits = still & (nc <= cap_v) & (nce <= cap_e)
+        if fits.any():
+            # dependents of the changed sets: one compaction of their rows
+            dslab = compact_frontier(
+                chg & torch.as_tensor(fits, device=dev)[:, None],
+                bg.inc_ptr, bg.dst, cap_v, cap_e)
+            active = _scatter_any(dslab.dst, (dslab.src < V)
+                                  & (dslab.dst > dslab.src), V)
+            nv, ne = np.array(torch.stack(
+                frontier_counts(active, bg.inc_ptr)).tolist())
+            ok = (nv <= cap_v) & (ne <= cap_e)
+            for path, mask in (("active sweep", fits & ok),
+                               ("slab spill", fits & ~ok)):
+                if mask.any():
+                    report_path(path)
+            fits &= ok
+        full = still & ~fits
+        if full.any():
+            cpad, chg = full_sweep(cpad, chg,
+                                   torch.as_tensor(full, device=dev))
+        if fits.any():
+            fits_t = torch.as_tensor(fits, device=dev)
+            cpad, chg = slab_sweep(cpad, chg, active & fits_t[:, None],
+                                   fits_t)
+        n += still
+        nslab += fits
+        still = still & np.array(chg.any(1).tolist(), np.bool_)
+        k += 1
+    return cpad[:, :V], n, still, nslab
 
 
 def color_dataflow(g, max_sweeps: int = 4096,

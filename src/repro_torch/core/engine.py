@@ -32,7 +32,10 @@ per architecture: the first-fit ("mex") inner loop and the conflict pass.
 * :func:`fixpoint_sweep` — THE speculation inner loop, a host loop of
   chaotic sweeps ``c[v] <- mex{contribution(e) : e forbids v}`` (pending v
   only) until nothing changes; one host sync per sweep for the convergence
-  test. The sweep count includes the final no-change sweep.
+  test. The sweep count includes the final no-change sweep. It and the
+  other speculation helpers take one graph or a batch (``[B, ...]``, the
+  block-diagonal union ``ColoringPlan.map`` colors); one graph runs as a
+  batch of one.
 
 Every reference ``mode="drop"`` scatter becomes a write into an explicit
 sink row or column: an out-of-range ``index_put_`` raises in torch.
@@ -42,6 +45,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Callable, Dict, NamedTuple, Optional, Tuple, Union
 
+import numpy as np
 import torch
 
 from ..kernels.conflict import conflict_mask
@@ -49,6 +53,7 @@ from ..kernels.firstfit import firstfit
 from ..kernels.ops import report_state
 from ..kernels.ref import table_mex
 from ..kernels.round_fused import COLOR_MASK, FORBID_BIT, round_fused
+from .graph import batch_index
 from .mex import segment_mex
 
 # A bound mex engine: (key_v [M], key_c [M]) -> mex [V] int32 (>= 1).
@@ -391,35 +396,56 @@ def fixpoint_iterate(update, x0, *, max_iters: int):
 
 
 def fixpoint_sweep(mex: MexFn, spec: SweepSpec, colors0: torch.Tensor,
-                   pending: torch.Tensor, *, max_sweeps: int):
+                   pending: torch.Tensor, *, max_sweeps: int, live=None):
     """THE speculative inner loop (paper Alg. 2 phase 1 / Alg. 3-5): sweep
         c[v] <- mex{ contribution(e) : e forbids v }     for pending v
     to its fixpoint. ITERATIVE and DATAFLOW both call this — their
     differences live entirely in ``spec``.
 
     The color vector is carried padded with the phantom slot V (always 0),
-    so contributions gather from it directly. Returns
-    (colors, sweeps, still_changing)."""
-    V = colors0.shape[0]
+    so contributions gather from it directly. ``colors0``/``pending`` are
+    [V], or [B, V] for a batch (``ColoringPlan.map``): then ``spec`` lies
+    in union space (``key_v`` union rows ``b*V + v``, sink ``B*V``;
+    ``dyn_idx`` indices into the flattened [B, V+1] carrier) and ``live``
+    ([B] host bool, default all) names the graphs that sweep. Each sweep
+    launches the engine once for the batch and syncs once; a graph stops
+    at its own fixpoint (its no-change sweep counted) and stays frozen
+    from then on, as under the reference's ``vmap``. Returns
+    (colors, sweeps, still_changing): [V], int and bool for one graph,
+    [B, V] and two [B] host arrays for a batch."""
+    if colors0.dim() == 1:
+        c, n, act = fixpoint_sweep(mex, spec, colors0[None], pending[None],
+                                   max_sweeps=max_sweeps)
+        return c[0], int(n[0]), bool(act[0])
+    B, V = colors0.shape
     report_state(colors0, pending)
-
-    def sweep(cpad):
-        key_c = torch.where(spec.dyn, cpad[spec.dyn_idx], spec.static_c)
-        new = torch.where(pending, mex(spec.key_v, key_c), cpad[:V])
-        return torch.cat([new, cpad[V:]])
-
-    cpad0 = torch.cat([colors0, colors0.new_zeros(1)])
-    cpad, n, changed = fixpoint_iterate(sweep, cpad0, max_iters=max_sweeps)
-    return cpad[:V], n, changed
+    act = np.ones(B, np.bool_) if live is None else np.array(live, np.bool_)
+    act_t = torch.as_tensor(act, device=colors0.device)
+    n = np.zeros(B, np.int32)
+    cpad = torch.cat([colors0, colors0.new_zeros((B, 1))], 1)
+    k = 0
+    while act.any() and k < max_sweeps:
+        key_c = torch.where(spec.dyn, cpad.reshape(-1)[spec.dyn_idx],
+                            spec.static_c)
+        old = cpad[:, :V]
+        new = torch.where(pending & act_t[:, None],
+                          mex(spec.key_v, key_c).view(B, V), old)
+        n += act
+        act_t = act_t & (new != old).any(1)
+        act = np.array(act_t.tolist(), np.bool_)
+        cpad, k = torch.cat([new, cpad[:, V:]], 1), k + 1
+    return cpad[:, :V], n, act
 
 
 def lockstep_offsets(pending: torch.Tensor, concurrency: int) -> torch.Tensor:
     """OpenMP-static superstep offsets over the pending set: rank within the
-    pending set mod block size (paper Alg. 2's thread-block geometry)."""
+    pending set mod block size (paper Alg. 2's thread-block geometry).
+    ``pending`` is [V], or [B, V] for a batch: the block size and the rank
+    are each graph's own."""
     p = pending.to(torch.int32)
-    r = p.sum(dtype=torch.int32)
+    r = p.sum(-1, keepdim=True, dtype=torch.int32)
     bs = torch.clamp((r + (concurrency - 1)) // concurrency, min=1)
-    rank = torch.cumsum(p, 0, dtype=torch.int32) - 1
+    rank = torch.cumsum(p, -1, dtype=torch.int32) - 1
     return torch.where(pending, rank % bs, torch.zeros_like(rank))
 
 
@@ -445,23 +471,38 @@ def conflict_pending(src: torch.Tensor, dst: torch.Tensor,
     the padded [V+1] color vector with 0 at every non-pending vertex and at
     the phantom slot V. Edge e fires iff both endpoints are pending, share
     a color and src > dst (padding edges, src == dst == V, never fire);
-    an ``amax`` scatter into [V+1] (row V = sink) queues each firing src.
-    Returns the next round's pending mask [V] bool."""
-    s = torch.clamp(src, max=num_vertices)
-    d = torch.clamp(dst, max=num_vertices)
-    return conflict_rows(masked[s], masked[d], src, dst, s, num_vertices)
+    an ``amax`` scatter queues each firing src. Returns the next round's
+    pending mask [V] bool.
+
+    For a batch ``src``/``dst`` are [B, M] local ids and ``masked`` is
+    [B, V+1]: one launch covers all B*M edges, comparing local ids (both
+    endpoints of an edge lie in one graph) and queueing carrier rows
+    ``b*(V+1) + src`` (padding lands on its own graph's phantom row).
+    Returns [B, V] bool."""
+    if masked.dim() == 1:
+        return conflict_pending(src[None], dst[None], masked[None],
+                                num_vertices)[0]
+    B, n_pad = masked.shape
+    s = batch_index(torch.clamp(src, max=num_vertices), n_pad)
+    d = batch_index(torch.clamp(dst, max=num_vertices), n_pad)
+    flat = masked.reshape(-1)
+    out = conflict_rows(flat[s], flat[d], src.reshape(-1), dst.reshape(-1),
+                        s, B * n_pad)
+    return out.view(B, n_pad)[:, :num_vertices]
 
 
 def speculation_conflicts(src: torch.Tensor, dst: torch.Tensor,
                           colors: torch.Tensor, pending: torch.Tensor,
                           num_vertices: int) -> torch.Tensor:
     """Alg. 2 phase 2 on an edge list: monochromatic same-round pairs queue
-    the higher-index endpoint. Returns the next round's pending mask.
+    the higher-index endpoint. Returns the next round's pending mask
+    (shapes as :func:`conflict_pending`, colors/pending [V] or [B, V]).
 
     Evaluated by the ``conflict_mask`` kernel on ``m = where(pending,
     colors, 0)``: after phase 1 every pending vertex holds a color >= 1, so
     ``m[src] == m[dst] & m[src] > 0`` is exactly the reference's
     ``pending[src] & pending[dst] & c[src] == c[dst]``."""
     masked = torch.where(pending, colors, torch.zeros_like(colors))
-    return conflict_pending(src, dst, torch.cat([masked, masked.new_zeros(1)]),
+    pad = masked.new_zeros(masked.shape[:-1] + (1,))
+    return conflict_pending(src, dst, torch.cat([masked, pad], -1),
                             num_vertices)

@@ -16,6 +16,10 @@ their incident constraint edges into fixed-capacity slabs:
 * :func:`frontier_conflicts` — Alg. 2 phase 2 over the slab edges only,
   through the ``conflict_mask`` kernel.
 
+Each takes one graph or a batch of B (``ColoringPlan.map``), whose graphs
+compact into their own regions of one slab (rows ``[b*cap_v, (b+1)*cap_v)``
+and edges ``[b*cap_e, (b+1)*cap_e)``); one graph runs as a batch of one.
+
 Spill semantics: capacities are static, frontiers are data. The round loops
 check the active counts against the capacities every round (a host sync)
 and take the full-edge path when the frontier overflows, so results are
@@ -26,11 +30,12 @@ from __future__ import annotations
 
 from typing import NamedTuple, Optional, Tuple
 
+import numpy as np
 import torch
 
 from ..kernels.ops import report_state
 from .engine import SlabMexFn, conflict_pending
-from .graph import pad_bucket
+from .graph import batch_index, pad_bucket
 
 FRONTIER_MODES = ("auto", "on", "off")
 
@@ -91,6 +96,8 @@ class FrontierSlab(NamedTuple):
     slot:  [cap_e] int32 position of the edge within its row.
     nv/ne: 0-d int32 true active counts — may EXCEED the capacities;
            callers must spill to the full path when they do.
+    A batch's slab has a leading [B] on every field, graph b's row in its
+    own ids.
     """
 
     vert: torch.Tensor
@@ -105,10 +112,12 @@ class FrontierSlab(NamedTuple):
 def frontier_counts(active: torch.Tensor,
                     inc_ptr: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """(nv, ne) of an active mask — the O(V) spill check, computable
-    without building the slab."""
-    deg = inc_ptr[1:] - inc_ptr[:-1]
-    nv = active.sum(dtype=torch.int32)
-    ne = torch.where(active, deg, torch.zeros_like(deg)).sum(dtype=torch.int32)
+    without building the slab. ``active`` [V] and ``inc_ptr`` [V+1] give
+    0-d counts; a batch ([B, V], [B, V+1]) gives [B] counts."""
+    deg = inc_ptr[..., 1:] - inc_ptr[..., :-1]
+    nv = active.sum(-1, dtype=torch.int32)
+    ne = torch.where(active, deg, torch.zeros_like(deg)).sum(
+        -1, dtype=torch.int32)
     return nv, ne
 
 
@@ -128,42 +137,56 @@ def compact_frontier(active: torch.Tensor, inc_ptr: torch.Tensor,
     ``nv``/``ne`` report the TRUE counts so callers spill. A graph with no
     edges gives an empty slab with ``nv`` equal to the active count and
     ``ne = 0``.
+
+    A batch (``active`` [B, V], ``inc_ptr`` [B, V+1], ``dst`` [B, E])
+    compacts each graph along its own row: every field gains a leading
+    [B], and graph b's slab is exactly the one it compacts alone.
     """
-    V = active.shape[0]
+    if active.dim() == 1:
+        slab = compact_frontier(active[None], inc_ptr[None], dst[None],
+                                cap_v, cap_e, dst_pad=dst_pad)
+        return FrontierSlab(*(x[0] for x in slab))
+    B, V = active.shape
+    E = dst.shape[1]
     fill = V if dst_pad is None else int(dst_pad)
     dev = active.device
-    deg = inc_ptr[1:] - inc_ptr[:-1]
+    deg = inc_ptr[:, 1:] - inc_ptr[:, :-1]
     nv, ne = frontier_counts(active, inc_ptr)
     i32 = dict(dtype=torch.int32, device=dev)
 
     # vertices: rank-within-active-set IS the slab row (order-preserving);
     # rows past the capacity go to the sink slot cap_v
-    rank = torch.cumsum(active.to(torch.int32), 0, dtype=torch.int32) - 1
+    rank = torch.cumsum(active.to(torch.int32), 1, dtype=torch.int32) - 1
     row = torch.where(active & (rank < cap_v), rank,
                       torch.full_like(rank, cap_v))
-    vert = torch.full((cap_v + 1,), V, **i32)
-    vert.index_put_((row,), torch.arange(V, **i32))
-    vert = vert[:cap_v]
+    vert = torch.full((B, cap_v + 1), V, **i32)
+    vert.scatter_(1, row.long(), torch.arange(V, **i32).expand(B, V))
+    vert = vert[:, :cap_v]
 
     # edges: exclusive cumsum of slab-row degrees gives each row's start;
     # scatter row ids at the starts, a running max floods them rightwards
-    degp = torch.cat([deg, deg.new_zeros(1)])
-    vdeg = degp[torch.clamp(vert, max=V)]            # empty rows give 0
-    starts = torch.cumsum(vdeg, 0, dtype=torch.int32) - vdeg
+    degp = torch.cat([deg, deg.new_zeros((B, 1))], 1)
+    vdeg = degp.gather(1, torch.clamp(vert, max=V).long())  # empty rows: 0
+    starts = torch.cumsum(vdeg, 1, dtype=torch.int32) - vdeg
     at = torch.where((vdeg > 0) & (starts < cap_e), starts,
                      torch.full_like(starts, cap_e))
-    owner = torch.zeros((cap_e + 1,), **i32)
-    owner.scatter_reduce_(0, at.long(), torch.arange(cap_v, **i32), "amax")
-    owner = torch.cummax(owner[:cap_e], 0).values
-    eidx = torch.arange(cap_e, **i32)
-    valid = eidx < torch.clamp(ne, max=cap_e)
-    slot = eidx - starts[owner] if cap_v else eidx
-    src = vert[owner] if cap_v else torch.full_like(eidx, V)
-    if dst.shape[0]:
-        gidx = inc_ptr[torch.clamp(src, max=V)] + slot
-        gdst = dst[torch.clamp(gidx, 0, dst.shape[0] - 1)]
+    owner = torch.zeros((B, cap_e + 1), **i32)
+    owner.scatter_reduce_(1, at.long(),
+                          torch.arange(cap_v, **i32).expand(B, cap_v),
+                          "amax")
+    owner = torch.cummax(owner[:, :cap_e], 1).values
+    eidx = torch.arange(cap_e, **i32).expand(B, cap_e)
+    valid = eidx < torch.clamp(ne, max=cap_e)[:, None]
+    if cap_v:
+        slot = eidx - starts.gather(1, owner.long())
+        src = vert.gather(1, owner.long())
     else:
-        gdst = torch.full_like(eidx, fill)
+        slot, src = eidx, torch.full((B, cap_e), V, **i32)
+    if E:
+        gidx = inc_ptr.gather(1, torch.clamp(src, max=V).long()) + slot
+        gdst = dst.gather(1, torch.clamp(gidx, 0, E - 1).long())
+    else:
+        gdst = torch.full((B, cap_e), fill, **i32)
     return FrontierSlab(
         vert=vert,
         owner=torch.where(valid, owner, torch.full_like(owner, cap_v)),
@@ -177,7 +200,7 @@ def frontier_sweep(mex_slab: SlabMexFn, *, key_v: torch.Tensor,
                    dyn: torch.Tensor, dyn_idx: torch.Tensor,
                    static_c: torch.Tensor, slot: torch.Tensor,
                    write_vert: torch.Tensor, cpad0: torch.Tensor,
-                   max_sweeps: int):
+                   max_sweeps: int, live=None):
     """The speculation inner loop over a compacted slab: chaotic sweeps of
     ``c[vert[i]] <- mex{ contribution(e) : e in row i }`` to a fixpoint,
     one host sync per sweep.
@@ -189,22 +212,44 @@ def frontier_sweep(mex_slab: SlabMexFn, *, key_v: torch.Tensor,
     gather target); ``write_vert`` the cpad index of each slab row, any
     value >= V being an inert row (written to a sink slot past the end).
 
-    Returns ``(cpad, sweeps, still_changing)``.
+    For a batch ``cpad0`` is [B, V+1] and ``write_vert`` [B, cap_v] (each
+    graph's own ids); the per-edge operands stay flat, in union space
+    (``key_v`` union slab rows, ``dyn_idx`` indices into the flattened
+    carrier), and ``live`` ([B] host bool, default all) names the graphs
+    that sweep. Each stops at its own fixpoint and stays frozen (its
+    writes go to the sink); one engine launch and one host sync per sweep
+    for the batch.
+
+    Returns ``(cpad, sweeps, still_changing)``: [V+1], int and bool for
+    one graph, [B, V+1] and two [B] host arrays for a batch.
     """
-    n_pad = cpad0.shape[0]                       # V + 1
+    if cpad0.dim() == 1:
+        cpad, n, act = frontier_sweep(
+            mex_slab, key_v=key_v, dyn=dyn, dyn_idx=dyn_idx,
+            static_c=static_c, slot=slot, write_vert=write_vert[None],
+            cpad0=cpad0[None], max_sweeps=max_sweeps)
+        return cpad[0], int(n[0]), bool(act[0])
+    B, n_pad = cpad0.shape                       # V + 1
     report_state(cpad0)
+    sink = B * n_pad
     wok = write_vert < n_pad - 1
-    widx = torch.where(wok, write_vert, torch.full_like(write_vert, n_pad))
-    old_idx = torch.clamp(widx, max=n_pad - 1)
-    cpad, changed, n = cpad0, True, 0
-    while changed and n < max_sweeps:
-        key_c = torch.where(dyn, cpad[dyn_idx], static_c)
+    widx = torch.where(wok.reshape(-1), batch_index(write_vert, n_pad), sink)
+    old_idx = torch.clamp(widx, max=sink - 1)
+    act = np.ones(B, np.bool_) if live is None else np.array(live, np.bool_)
+    act_t = torch.as_tensor(act, device=cpad0.device)
+    n = np.zeros(B, np.int32)
+    flat, k = cpad0.reshape(-1), 0
+    while act.any() and k < max_sweeps:
+        key_c = torch.where(dyn, flat[dyn_idx], static_c)
         mexv = mex_slab(key_v, key_c, slot)
-        changed = bool(torch.any(wok & (mexv != cpad[old_idx])))
-        buf = torch.cat([cpad, cpad.new_zeros(1)])
-        buf.index_put_((widx,), mexv)
-        cpad, n = buf[:n_pad], n + 1
-    return cpad, n, changed
+        ok = (wok & act_t[:, None]).reshape(-1)
+        n += act
+        act_t = (ok & (mexv != flat[old_idx])).view(B, -1).any(1)
+        act = np.array(act_t.tolist(), np.bool_)
+        buf = torch.cat([flat, flat.new_zeros(1)])
+        buf.index_put_((torch.where(ok, widx, sink),), mexv)
+        flat, k = buf[:sink], k + 1
+    return flat.view(B, n_pad), n, act
 
 
 def frontier_conflicts(slab: FrontierSlab, cpad: torch.Tensor,
@@ -215,6 +260,8 @@ def frontier_conflicts(slab: FrontierSlab, cpad: torch.Tensor,
     ALL edges incident to pending vertices; the slab rows are all pending,
     so masking non-pending colors to 0 reproduces the reference's
     ``ppad[dst] & cpad[src] == cpad[dst]`` through the ``conflict_mask``
-    kernel. Returns the next round's pending mask ([V] bool)."""
+    kernel. Returns the next round's pending mask ([V] bool; for a batch's
+    slab and carriers, [B, V])."""
     masked = torch.where(ppad, cpad, torch.zeros_like(cpad))
     return conflict_pending(slab.src, slab.dst, masked, num_vertices)
+

@@ -1,6 +1,6 @@
 """Graph containers for the coloring engine (PyTorch port).
 
-Four representations:
+Five representations:
 
 * :class:`Graph` — host-side (numpy) CSR + directed edge list. Construction,
   dedup, symmetrization, stats and streaming edge deltas live here.
@@ -16,6 +16,8 @@ Four representations:
   ``Graph.to_device(layout=...)`` optionally the CSR arrays and/or the ELL
   geometry (per-edge slot map + static width) the ``ell_pallas`` and
   ``fused_pallas`` engines scatter through.
+* :class:`BatchedGraph` — B same-envelope DeviceGraphs stacked on one
+  device, the block-diagonal union ``ColoringPlan.map`` colors at once.
 * :class:`ShardLayout` — host-side (numpy) shard-local CSR + boundary halo
   map of a graph partitioned over the ranks of a process mesh
   (``repro_torch.core.distributed.partition_graph``).
@@ -485,6 +487,86 @@ class DeviceGraph:
         """True when the incident-edge auxiliary is present, i.e. the
         frontier execution layer can compact active sets on this graph."""
         return self.inc_ptr is not None
+
+
+@dataclasses.dataclass(frozen=True)
+class BatchedGraph:
+    """B same-envelope :class:`DeviceGraph`\\ s stacked on one device: the
+    graph of ``ColoringPlan.map``'s batched program.
+
+    The tensors are ``[B, ...]`` stacks of the members' own arrays (local
+    vertex ids, padding ``V``). The kernels see their block-diagonal union
+    through :func:`batch_index`: graph ``b``'s vertex ``v`` is union row
+    ``b*V + v`` (``B*V`` is the one sink row every graph's padding goes
+    to), and colors are carried as ``[B, V+1]``, so a padded endpoint
+    gathers its own graph's phantom slot (always 0), never the next
+    graph's vertex 0. Graph ``b``'s edges are union slots
+    ``[b*E, (b+1)*E)``; the ELL slots need no offset (a slot is a position
+    within its row)."""
+
+    num_vertices: int                        # V of every member
+    src: torch.Tensor                        # [B, E] int32 in [0, V]
+    dst: torch.Tensor                        # [B, E] int32 in [0, V]
+    max_degree: int = -1
+    ell_slot: Optional[torch.Tensor] = None  # [B, E] int32
+    ell_width: int = 0
+    inc_ptr: Optional[torch.Tensor] = None   # [B, V+1] int32
+
+    @property
+    def batch(self) -> int:
+        return int(self.src.shape[0])
+
+    @property
+    def device(self) -> torch.device:
+        return self.src.device
+
+    @property
+    def padded_edges(self) -> int:
+        return int(self.src.shape[1])
+
+    @property
+    def has_frontier(self) -> bool:
+        return self.inc_ptr is not None
+
+
+def batch_index(ids: torch.Tensor, stride: int) -> torch.Tensor:
+    """``[B, n]`` per-graph indices -> ``[B*n]`` union indices: row ``b``
+    is offset by ``b*stride`` (stride ``V`` for union rows, ``V+1`` for
+    the color carrier, a slab capacity for slab rows). One graph's ids
+    are already union ids."""
+    if ids.shape[0] == 1:
+        return ids.reshape(-1)
+    off = torch.arange(ids.shape[0], dtype=ids.dtype,
+                       device=ids.device).view(-1, 1) * stride
+    return (ids + off).reshape(-1)
+
+
+def stack_device_graphs(graphs: Sequence[DeviceGraph]) -> BatchedGraph:
+    """Stack same-envelope DeviceGraphs (one device, vertex count, padded
+    edge count, degree bound and layout, as ``ColoringPlan`` canonicalizes
+    them) into one :class:`BatchedGraph`. One graph is stacked as a
+    view of its own arrays (the per-graph program runs a batch of one)."""
+    g0 = graphs[0]
+    sig = (g0.device, g0.num_vertices, g0.padded_edges, g0.max_degree,
+           g0.ell_width, g0.has_ell, g0.has_frontier)
+    for g in graphs[1:]:
+        if (g.device, g.num_vertices, g.padded_edges, g.max_degree,
+                g.ell_width, g.has_ell, g.has_frontier) != sig:
+            raise ValueError("stack_device_graphs needs graphs of one "
+                             "envelope (device, V, padded edges, degree "
+                             "bound, layout)")
+
+    def stack(name):
+        if getattr(g0, name) is None:
+            return None
+        if len(graphs) == 1:
+            return getattr(g0, name)[None]
+        return torch.stack([getattr(g, name) for g in graphs])
+
+    return BatchedGraph(num_vertices=g0.num_vertices, src=stack("src"),
+                        dst=stack("dst"), max_degree=g0.max_degree,
+                        ell_slot=stack("ell_slot"), ell_width=g0.ell_width,
+                        inc_ptr=stack("inc_ptr"))
 
 
 @dataclasses.dataclass(frozen=True)

@@ -40,7 +40,7 @@ from .engine import (EngineSpec, SweepSpec, fixpoint_sweep,
                      lockstep_offsets, speculation_conflicts)
 from .frontier import (compact_frontier, frontier_conflicts, frontier_counts,
                        frontier_sweep)
-from .graph import DeviceGraph, DeviceSpec
+from .graph import BatchedGraph, DeviceSpec, batch_index
 
 _INT32_MAX = torch.iinfo(torch.int32).max
 
@@ -67,103 +67,140 @@ class ColoringResult:
         return _distinct(self.colors)
 
 
-def _iterative_impl(g: DeviceGraph, colors0=None, pending0=None, *,
+def _iterative_impl(bg: BatchedGraph, colors0=None, pending0=None, *,
                     concurrency: int, max_rounds: int,
                     max_sweeps: int, backend, color_bound: int = 0,
                     frontier_cap_v: int = 0, frontier_cap_e: int = 0,
                     seed_frontier: bool = False):
-    """The speculation round loop. ``colors0``/``pending0`` ([V] int32 /
+    """The speculation round loop over a batch of B graphs (one graph is a
+    batch of one), with the semantics of the reference's ``vmap``: every
+    graph runs its own rounds, and a graph whose round loop has ended stays
+    frozen (no colors, pending rows or history entries change) while the
+    others go on. Per round each graph takes its own branch: the frontier
+    round when its pending set fits its slab, else the full round, so a
+    round may run both, each over the graphs that took it. Each sweep
+    launches the engine once for the whole union and each branch launches
+    ``conflict_mask`` once; the host syncs are per batch (the pending
+    counts, the spill test, one per sweep), not per graph.
+
+    ``colors0``/``pending0`` ([B, V] or, for one graph, [V]; int32 /
     bool, host or device) warm-start it from an existing partial coloring
     (the ``"recolor"`` strategy's repair entry: committed colors + the
     conflicted seed set); ``None`` is the cold start (no colors, everything
     pending). ``seed_frontier`` lets round 0 take the compacted frontier
     path — off for cold starts, where round 0 is all-pending, on for
     seeded repairs, where round 0 IS the small conflicted tail.
-    Returns ``(colors, rounds, conflicts_per_round, sweeps_per_round,
-    frontier_per_round, unconverged)``: colors a device tensor, the
-    histories ``[max_rounds]`` int32 numpy arrays."""
-    V = g.num_vertices
-    dev = g.device
-    src, dst = g.src, g.dst
-    max_colors = g.max_degree + 1
+    Returns ``(colors [B, V], rounds [B], conflicts [B, max_rounds],
+    sweeps [B, max_rounds], frontier [B, max_rounds], unconverged [B])``:
+    colors a device tensor, the rest host arrays."""
+    B, V = bg.batch, bg.num_vertices
+    BV = B * V
+    dev = bg.device
+    max_colors = bg.max_degree + 1
     if color_bound > 0:
         max_colors = min(max_colors, color_bound)
-    mex = backend.bind(num_vertices=V, max_colors=max_colors,
-                       ell_slot=g.ell_slot, ell_width=g.ell_width,
-                       max_degree=g.max_degree)
-    use_frontier = frontier_cap_v > 0 and g.has_frontier
+    mex = backend.bind(
+        num_vertices=BV, max_colors=max_colors,
+        ell_slot=None if bg.ell_slot is None else bg.ell_slot.reshape(-1),
+        ell_width=bg.ell_width, max_degree=bg.max_degree)
+    cap_v, cap_e = frontier_cap_v, frontier_cap_e
+    use_frontier = cap_v > 0 and bg.has_frontier
     if use_frontier:
         mex_slab = backend.bind_slab(
-            capacity=frontier_cap_v, max_colors=max_colors,
-            ell_width=g.max_degree, max_degree=g.max_degree)
+            capacity=B * cap_v, max_colors=max_colors,
+            ell_width=bg.max_degree, max_degree=bg.max_degree)
+    rows = batch_index(bg.src, V)       # union rows of the real edges
+    gsrc = batch_index(bg.src, V + 1)   # a pad (V) gathers its own phantom
+    gdst = batch_index(bg.dst, V + 1)
 
-    def full_round(colors, pending, ppad, opad):
+    def full_round(colors, pending, ppad, opad, part):
         # neighbor forbids src iff committed, or pending at smaller offset
-        forbids = ppad[src] & (~ppad[dst] | (opad[dst] < opad[src]))
-        spec = SweepSpec(key_v=torch.where(forbids, src, V),
-                         dyn_idx=dst, dyn=forbids,
-                         static_c=torch.zeros_like(dst))
+        # (never a padding edge: its src reads the phantom, never pending)
+        pf, of = ppad.reshape(-1), opad.reshape(-1)
+        forbids = pf[gsrc] & (~pf[gdst] | (of[gdst] < of[gsrc]))
+        spec = SweepSpec(key_v=torch.where(forbids, rows, BV),
+                         dyn_idx=gdst, dyn=forbids,
+                         static_c=torch.zeros_like(gdst))
+        run = pending & torch.as_tensor(part, device=dev)[:, None]
         # Phase 1 — fixpoint of the offset-precedence dataflow equations.
         colors, n_sweeps, _ = fixpoint_sweep(
-            mex, spec, torch.where(pending, torch.zeros_like(colors), colors),
-            pending, max_sweeps=max_sweeps)
+            mex, spec, torch.where(run, torch.zeros_like(colors), colors),
+            run, max_sweeps=max_sweeps, live=part)
         # Phase 2 — conflicts among same-round pairs; higher index recolors.
-        return colors, n_sweeps, speculation_conflicts(src, dst, colors,
-                                                       pending, V)
+        return colors, n_sweeps, speculation_conflicts(bg.src, bg.dst,
+                                                       colors, run, V)
 
-    def frontier_round(colors, pending, ppad, opad):
+    def frontier_round(colors, pending, ppad, opad, part):
         # same equations, compacted: the slab holds every pending vertex
         # and every constraint edge incident to one
-        slab = compact_frontier(pending, g.inc_ptr, dst,
-                                frontier_cap_v, frontier_cap_e)
+        active = pending & torch.as_tensor(part, device=dev)[:, None]
+        slab = compact_frontier(active, bg.inc_ptr, bg.dst, cap_v, cap_e)
+        sd, ss = slab.dst.long(), slab.src.long()
         forbid_e = ((slab.src < V)
-                    & (~ppad[slab.dst] | (opad[slab.dst] < opad[slab.src])))
-        cpad0 = torch.cat([colors, colors.new_zeros(1)])
-        cpad0[slab.vert] = 0          # empty rows (vert == V) hit slot V
+                    & (~ppad.gather(1, sd)
+                       | (opad.gather(1, sd) < opad.gather(1, ss))))
+        cpad0 = torch.cat([colors, colors.new_zeros((B, 1))], 1)
+        cpad0.scatter_(1, slab.vert.long(), 0)   # empty rows hit slot V
         cpad, n_sweeps, _ = frontier_sweep(
             mex_slab,
-            key_v=torch.where(forbid_e, slab.owner, frontier_cap_v),
-            dyn=forbid_e, dyn_idx=slab.dst,
-            static_c=torch.zeros_like(slab.dst), slot=slab.slot,
-            write_vert=slab.vert, cpad0=cpad0, max_sweeps=max_sweeps)
-        return cpad[:V], n_sweeps, frontier_conflicts(slab, cpad, ppad, V)
+            key_v=torch.where(forbid_e.reshape(-1),
+                              batch_index(slab.owner, cap_v), B * cap_v),
+            dyn=forbid_e.reshape(-1), dyn_idx=batch_index(slab.dst, V + 1),
+            static_c=torch.zeros((B * cap_e,), dtype=torch.int32,
+                                 device=dev),
+            slot=slab.slot.reshape(-1), write_vert=slab.vert, cpad0=cpad0,
+            live=part, max_sweeps=max_sweeps)
+        return cpad[:, :V], n_sweeps, frontier_conflicts(slab, cpad, ppad, V)
 
-    colors = (torch.zeros((V,), dtype=torch.int32, device=dev)
+    colors = (torch.zeros((B, V), dtype=torch.int32, device=dev)
               if colors0 is None else
-              torch.as_tensor(colors0).to(dev, torch.int32, copy=True))
-    pending = (torch.ones((V,), dtype=torch.bool, device=dev)
+              torch.as_tensor(colors0).to(dev, torch.int32, copy=True)
+              .reshape(B, V))
+    pending = (torch.ones((B, V), dtype=torch.bool, device=dev)
                if pending0 is None else
-               torch.as_tensor(pending0).to(dev, torch.bool, copy=True))
+               torch.as_tensor(pending0).to(dev, torch.bool, copy=True)
+               .reshape(B, V))
     report_state(colors, pending)
-    conf_hist = np.zeros(max_rounds, np.int32)
-    sweep_hist = np.zeros(max_rounds, np.int32)
-    front_hist = np.zeros(max_rounds, np.int32)
-    left = int(pending.sum())
+    conf_hist = np.zeros((B, max_rounds), np.int32)
+    sweep_hist = np.zeros((B, max_rounds), np.int32)
+    front_hist = np.zeros((B, max_rounds), np.int32)
+    left = np.array(pending.sum(1).tolist(), np.int64)
+    rounds = np.zeros(B, np.int32)
     rnd = 0
-    while left > 0 and rnd < max_rounds:
-        # OpenMP-static lockstep offsets over the pending set
+    while (left > 0).any() and rnd < max_rounds:
+        live = left > 0
+        rounds += live
+        # OpenMP-static lockstep offsets over each graph's pending set
         offset = lockstep_offsets(pending, concurrency)
-        ppad = torch.cat([pending, pending.new_zeros(1)])
-        opad = torch.cat([offset, offset.new_full((1,), _INT32_MAX)])
-        fits = False
-        if use_frontier and (rnd > 0 or seed_frontier):
-            nv, ne = (int(x) for x in frontier_counts(pending, g.inc_ptr))
-            fits = nv <= frontier_cap_v and ne <= frontier_cap_e
-        if fits:
-            report_path("frontier round")
-            colors, n_sweeps, pending = frontier_round(colors, pending,
-                                                       ppad, opad)
-            front_hist[rnd] = nv
-        else:
-            if use_frontier and (rnd > 0 or seed_frontier):
+        ppad = torch.cat([pending, pending.new_zeros((B, 1))], 1)
+        opad = torch.cat([offset, offset.new_full((B, 1), _INT32_MAX)], 1)
+        fits = np.zeros(B, np.bool_)
+        spill_test = use_frontier and (rnd > 0 or seed_frontier)
+        if spill_test:
+            nv, ne = np.array(torch.stack(
+                frontier_counts(pending, bg.inc_ptr)).tolist())
+            fits = live & (nv <= cap_v) & (ne <= cap_e)
+        full = live & ~fits
+        new_pending = torch.zeros_like(pending)
+        if full.any():
+            if spill_test:
                 report_path("slab spill")
-            colors, n_sweeps, pending = full_round(colors, pending,
-                                                   ppad, opad)
-        left = int(pending.sum())
-        conf_hist[rnd] = left
-        sweep_hist[rnd] = n_sweeps
+            colors, n_sweeps, p = full_round(colors, pending, ppad, opad,
+                                             full)
+            new_pending |= p
+            sweep_hist[full, rnd] = n_sweeps[full]
+        if fits.any():
+            report_path("frontier round")
+            colors, n_sweeps, p = frontier_round(colors, pending, ppad, opad,
+                                                 fits)
+            new_pending |= p
+            sweep_hist[fits, rnd] = n_sweeps[fits]
+            front_hist[fits, rnd] = nv[fits]
+        pending = new_pending
+        left = np.array(pending.sum(1).tolist(), np.int64)
+        conf_hist[live, rnd] = left[live]
         rnd += 1
-    return colors, rnd, conf_hist, sweep_hist, front_hist, left > 0
+    return colors, rounds, conf_hist, sweep_hist, front_hist, left > 0
 
 
 def color_iterative(

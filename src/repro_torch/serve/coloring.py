@@ -7,7 +7,8 @@ family rides ONE built program):
 
 * :class:`ColoringService` — the synchronous in-process server:
   ``color``/``color_batch`` with same-key micro-batching through
-  ``plan.map`` and flush-atomic stats.
+  ``plan.map`` (one batched program per micro-batch: each sweep launches
+  each kernel once for all its graphs) and flush-atomic stats.
 * :class:`AsyncColoringService` — the production shape. ``submit`` is
   **admission**, not execution: requests land on per-tenant FIFO queues
   behind a bounded global depth (overflow raises :class:`AdmissionError`).
@@ -236,8 +237,9 @@ class ColoringService:
 
     def color_batch(self, requests: Sequence[Request]) -> list:
         """Serve a batch: requests sharing a cache key micro-batch through
-        one ``plan.map`` call (strategies that support it); the rest loop
-        over their cached plan. Results come back in
+        one ``plan.map`` call, one run of the plan's batched program
+        (strategies that support it); the rest loop over their cached
+        plan. Results come back in
         submission order as :class:`ServedReport`s; stats commit once per
         flushed group."""
         reqs = [self._norm(r) for r in requests]
@@ -635,8 +637,11 @@ class AsyncColoringService:
         tr0 = plan.traces
         use_map = len(batch) > 1 and plan.strategy.supports_map
         if use_map:
-            # the port's map runs the one program per graph, so a batch
-            # of any occupancy reuses it: no padding to max_batch
+            # one run of the plan's batched program for the whole
+            # micro-batch. The reference pads to max_batch so that jit
+            # compiles one shape; the port's batched program is built once
+            # for any batch size, so a partial batch is not padded (padding
+            # would only color copies)
             reports = plan.map([p.graph for p in batch])
         else:
             reports = [plan(p.graph) for p in batch]

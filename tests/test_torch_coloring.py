@@ -133,7 +133,7 @@ def test_plan_builds_once_per_bucket_family():
     reports = [plan(g) for g in gs]
     assert plan.traces == 1
     mapped = plan.map(gs)
-    assert plan.traces == 1
+    assert plan.traces == 2   # the per-graph and the batched program
     for g, one, many in zip(gs, reports, mapped):
         assert T.validate_coloring(g, one.colors)
         assert_same_report(many, one)
