@@ -5,7 +5,7 @@ is right on an NVIDIA card. Run from the repository root:
     python3 chip_smoke.py
 
 Phases, each printing its own lines; any failure raises and exits non-zero.
-They run in the order 1-4, 6-15, 5: the timings come last, on the slabs the
+They run in the order 1-4, 6-16, 5: the timings come last, on the slabs the
 other phases colored.
 
 1. build    — compile the CUDA kernels from ``src/repro_torch/kernels/csrc``
@@ -117,10 +117,12 @@ other phases colored.
               with ``restore(shardings=)`` and onto the card, each next
               step held to the 2 x 2 run's; (e) ROADMAP C11: mamba2-130m's
               float32 step on the 2 x 2 CPU mesh, each rank's shards held
-              to the one-device step in float64. Each of its five ranks
-              counts its own kernel launches from 0; the phase reports
-              their sum, which is 0: the lane launches none of the
-              kernels;
+              to the one-device step in float64; (f) ROADMAP C13: the
+              same for qwen3-4b's smoke config with batch 2 in 2
+              microbatches, one row each over the 2 data ranks. Each of
+              its five ranks counts its own kernel launches from 0; the
+              phase reports their sum, which is 0: the lane launches none
+              of the kernels;
 14. dryrun  — the multi-pod dry run (``python -m repro_torch.launch.dryrun``'s
               ``run_cell``) in worker processes side by side, one fake
               process group each: (a) on the production meshes, fake CUDA
@@ -149,7 +151,17 @@ other phases colored.
               against the loop's (> 0, never more), the wall and device
               busy share of map and loop; phase 2's exact checks on the
               union's slab and edges; DATAFLOW ``fused_pallas`` on 8
-              RMAT-G scale-16 graphs, map equal to the loop.
+              RMAT-G scale-16 graphs, map equal to the loop;
+16. examples — the port's examples (``examples/*_torch.py``) through their
+              ``main(argv)`` on the card: the quickstart at scale 12 under
+              ``fused_pallas``, ``ell_pallas`` and DATAFLOW (every result
+              validated against the serial oracle; the kernels' launch
+              counts before and after each run, and each kernel launched),
+              the comm scheduler on 64 devices (ITERATIVE on the card),
+              the LM serving wrapper at the smoke config, and the
+              training wrapper at the reference example's defaults
+              (mamba2-130m, 30 steps, batch 4 x 256), whose loss must
+              fall.
 
 Ends with a ``{"kernels": [...]}`` line, the card's name and power limit,
 and the result line ``{"ok": true, "device": {...}}``. Imports no JAX and
@@ -222,6 +234,7 @@ SHARDED_CARD = (4, 512, 3)  # batch, seq, steps on the 1 x 1 NCCL mesh
 SHARDED_CPU = (2, 32)       # batch, seq on the 2 x 2 mesh of CPU ranks
 SHARDED_TIMEOUT_S = 300
 C11_BATCH = (4, 16)         # mamba2's 2 x 2 step: tests/test_torch_train_sharded
+C13_BATCH = (2, 16)         # one row per microbatch on 2 x 2 (ROADMAP C13)
 # phase 14: the dry run's cells on the production meshes (fake CUDA
 # tensors, full configs), each worker a process of its own (one fake
 # process group per mesh), the workers run side by side
@@ -1978,25 +1991,29 @@ def _hold_shards(got, want, names) -> dict:
                 loose=bars.loose, total=bars.total)
 
 
-def _c11_hold(mesh) -> dict:
-    """ROADMAP C11: mamba2-130m (smoke config) takes one float32 step on
-    ``mesh`` (2 x 2, CPU ranks); the gated norm's backward raised there
-    under torch 2.11 before it was given whole rows. This rank's shards are
-    held, under the step bars, against the same blocks of the one-device
-    step computed in float64 from the same seed-0 weights on the same
-    batch (the step's exact value: the mesh's float32 step and the
-    one-device float32 step each differ from it by reduction order, and
-    from each other by up to the sum). The one-device float32 step's
-    grad_norm is reported beside it."""
+def _mesh_step_hold(mesh, arch: str, batch: tuple,
+                    microbatches: int = 1) -> dict:
+    """``arch`` (smoke config) takes one float32 step on ``mesh`` (2 x 2,
+    CPU ranks) with ``microbatches``. This rank's shards are held, under
+    the step bars, against the same blocks of the one-device step computed
+    in float64 from the same seed-0 weights on the same batch (the step's
+    exact value: the mesh's float32 step and the one-device float32 step
+    each differ from it by reduction order, and from each other by up to
+    the sum). The one-device float32 step's grad_norm is reported beside
+    it. (e) ROADMAP C11: mamba2-130m's gated norm's backward raised on the
+    2 x 2 mesh under torch 2.11 before it was given whole rows. (f) ROADMAP
+    C13: a microbatch of fewer rows than its data ranks was refused before
+    it was replicated on them."""
     from repro_torch.configs import get_smoke_config
     from repro_torch.launch import train as lt
     from repro_torch.models import ShapeConfig
     from repro_torch.train import AdamWConfig, TrainStepConfig, data
-    b, t = C11_BATCH
-    opt_cfg, ts_cfg = AdamWConfig(), TrainStepConfig()
+    b, t = batch
+    opt_cfg = AdamWConfig()
+    ts_cfg = TrainStepConfig(microbatches=microbatches)
     steps = {}
     for dt in ("float32", "float64"):
-        cfg = dataclasses.replace(get_smoke_config("mamba2-130m"), dtype=dt)
+        cfg = dataclasses.replace(get_smoke_config(arch), dtype=dt)
         dcfg = data.data_config_for(cfg, ShapeConfig("smoke", t, b, "train"))
         params, state, step, _ = lt.build(cfg, opt_cfg, ts_cfg, device="cpu",
                                           mesh=mesh if dt == "float32"
@@ -2104,8 +2121,12 @@ def sharded_cpu_rank(pmesh, root: str) -> dict:
     _say(rank, "(c) held")
     out["restart_params"] = sum(p.numel() for p in params.parameters())
     # ---- (e) ROADMAP C11: mamba2's 2 x 2 step under this torch -----------
-    out["c11"] = _c11_hold(m22)
+    out["c11"] = _mesh_step_hold(m22, "mamba2-130m", C11_BATCH)
     _say(rank, "(e) held")
+    # ---- (f) ROADMAP C13: one row per microbatch over 2 data ranks -------
+    out["c13"] = _mesh_step_hold(m22, SHARDED_ARCH, C13_BATCH,
+                                 microbatches=C13_BATCH[0])
+    _say(rank, "(f) held")
     out["launches"] = launch_counts()
     return out
 
@@ -2185,6 +2206,17 @@ def phase_sharded(card: str):
         f"{worst['c11']['text']}; m and v over all four ranks at worst "
         f"{max(r['c11']['mv'] for r in ranks):.3g} of their bar; grad_norm "
         f"2 x 2 {gn[0]!r}, one device float32 {gn[1]!r}, float64 {gn[2]!r}")
+    worst = max(ranks, key=lambda r: r["c13"]["perr"])
+    gn = r0["c13"]["grad_norm"]
+    log(f"{tag} (f) C13: {SHARDED_ARCH} (smoke config, batch {C13_BATCH[0]} "
+        f"x {C13_BATCH[1]}, {C13_BATCH[0]} microbatches: one row each over "
+        f"the 2 data ranks, replicated on them) takes its float32 step on "
+        f"the 2 x 2 mesh; each rank's shards against the one-device "
+        f"microbatched step in float64 from the same weights, rank "
+        f"{worst['rank']}: {worst['c13']['text']}; m and v over all four "
+        f"ranks at worst {max(r['c13']['mv'] for r in ranks):.3g} of their "
+        f"bar; grad_norm 2 x 2 {gn[0]!r}, one device float32 {gn[1]!r}, "
+        f"float64 {gn[2]!r}")
     log(f"phase 13 {SHARDED_MOE_SKIP}")
     counts = {k.name: sum(x["launches"][k.name] for x in [one, *ranks])
               for k in KERNELS}
@@ -2524,6 +2556,67 @@ def phase_batched(errors):
     return map_total
 
 
+def _example(name: str):
+    """``examples/<name>.py`` as a module (its ``main(argv)`` is the entry
+    point)."""
+    import importlib.util
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "examples", name + ".py")
+    spec = importlib.util.spec_from_file_location("example_" + name, path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def phase_examples() -> dict:
+    """Phase 16: the port's examples (``examples/*_torch.py``) on the card,
+    each through its ``main(argv)`` in this process: the quickstart under
+    ``fused_pallas``, ``ell_pallas`` and DATAFLOW, the comm scheduler
+    (ITERATIVE on the card), the LM serving wrapper at the smoke config
+    and the training wrapper at the reference example's defaults. Returns
+    the kernel launches of the phase; the quickstart's must reach every
+    kernel."""
+    import contextlib
+    import io
+    import shutil
+    from repro_torch.kernels import KERNELS, launch_counts, \
+        reset_launch_counts
+    t0 = time.perf_counter()
+    ckpt = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                        "examples_ckpt")
+    shutil.rmtree(ckpt, ignore_errors=True)
+    runs = [("quickstart_torch", ["--scale", "12", "--engine", e] + extra)
+            for e, extra in (("fused_pallas", []), ("ell_pallas", []),
+                             ("fused_pallas", ["--strategy", "dataflow"]))]
+    runs += [("color_comm_schedule_torch", ["--devices", "64"]),
+             ("serve_lm_torch", []),
+             ("train_lm_torch", ["--ckpt-dir", ckpt])]
+    reset_launch_counts()
+    total = {k.name: 0 for k in KERNELS}
+    for name, argv in runs:
+        before = launch_counts()
+        t = time.perf_counter()
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            _example(name).main(argv)
+        for line in buf.getvalue().splitlines():
+            log(f"phase 16 | {line}")
+        after = launch_counts()
+        log(f"phase 16 {name} {' '.join(argv)}: "
+            f"{time.perf_counter() - t:.1f} s; launches before {before}, "
+            f"after {after}")
+        if name == "quickstart_torch":
+            for k in total:
+                total[k] += after[k] - before[k]
+    for k, n in total.items():
+        assert n > 0, f"the quickstart never launched {k}"
+    counts = launch_counts()
+    log(f"phase 16 launches by the quickstart runs {total}; whole phase "
+        f"{counts}")
+    log(f"phase 16 examples: ok ({time.perf_counter() - t0:.1f} s)")
+    return counts
+
+
 def main(argv=None) -> int:
     import argparse
     import torch
@@ -2700,12 +2793,13 @@ def main(argv=None) -> int:
     counts_sharded, sharded = phase_sharded(card)
     counts_dryrun = phase_dryrun(card, sharded)
     counts_batched = phase_batched(errors)
+    counts_examples = phase_examples()
     by_path = {"main": main_counts, "models": counts_models,
                "stream": counts_stream, "serve": counts_serve,
                "distributed": counts_dist, "analysis": counts_analysis,
                "lm": counts_lm, "train": counts_train,
                "sharded": counts_sharded, "dryrun": counts_dryrun,
-               "batched": counts_batched}
+               "batched": counts_batched, "examples": counts_examples}
 
     # ---- phase 5: timings at the main path's shapes ---------------------
     dg, c, cpad, V, D, runs = real_slabs(graphs[0], reports[0].colors, words)

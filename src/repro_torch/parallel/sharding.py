@@ -31,6 +31,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import math
 import threading
 from typing import Dict, Optional, Sequence, Tuple, Union
 
@@ -142,6 +143,12 @@ def logical_to_spec(logical_axes: Sequence[Optional[str]], rules: Rules,
     return Spec(*_dedup(resolved))
 
 
+def _splits(size: int, parts: int) -> bool:
+    """Whether a dim of ``size`` splits into ``parts`` equal shards: the
+    one rule by which a split is kept, or dropped and the dim replicated."""
+    return parts != 0 and size % parts == 0
+
+
 def _divisible(shape, resolved, sizes: Dict[str, int]):
     """``resolved`` with every mapping whose mesh-axis product does not
     divide its dim dropped."""
@@ -153,9 +160,26 @@ def _divisible(shape, resolved, sizes: Dict[str, int]):
         prod = 1
         for pp in parts:
             prod *= sizes.get(pp, 1)
-        if prod == 0 or shape[i] % prod != 0:
+        if not _splits(shape[i], prod):
             out[i] = None
     return tuple(out)
+
+
+def fit_placements(shape, where, mesh) -> tuple:
+    """DTensor placements ``where`` for a tensor of ``shape``, with the
+    ``Shard(d)`` entries of every dim ``d`` that their mesh dims do not
+    split evenly made ``Replicate()``: :func:`spec_for_array`'s rule, on
+    placements."""
+    from torch.distributed.tensor import Replicate
+    where = tuple(where)
+    sizes = tuple(mesh_axes(mesh).values())
+    drop = set()
+    for d in {p.dim for p in where if p.is_shard()}:
+        prod = math.prod(n for n, p in zip(sizes, where) if p.is_shard(d))
+        if not _splits(shape[d], prod):
+            drop.add(d)
+    return tuple(Replicate() if p.is_shard() and p.dim in drop else p
+                 for p in where)
 
 
 def spec_for_array(shape: Tuple[int, ...], logical_axes, rules: Rules,

@@ -12,14 +12,13 @@ back as plain tensors that every rank holds alike.
 from __future__ import annotations
 
 import dataclasses
-import math
 
 import torch
 
 from .. import models
 from ..models.counting import trips
 from ..models.params import cast_params
-from ..parallel.sharding import whole
+from ..parallel.sharding import fit_placements, whole
 from .optimizer import AdamWConfig, adamw_update
 
 
@@ -89,28 +88,29 @@ def make_train_step(model_cfg, opt_cfg: AdamWConfig,
 
 def _microbatches(batch, n: int) -> list:
     """The ``n`` microbatches of a batch: microbatch ``i`` holds the
-    ``i``-th of ``n`` equal blocks of the global rows. A DTensor leaf is
-    gathered whole once (the batch is token ids and inputs, small beside
-    the step's other traffic) and each block is split again on the leaf's
-    own placements, so every rank keeps its share of every microbatch."""
+    ``i``-th of ``n`` equal blocks of the global rows (the reference's
+    ``reshape_mb``). A DTensor leaf is gathered whole once (the batch is
+    token ids and inputs, small beside the step's other traffic) and each
+    block is split again on the leaf's own placements, so every rank keeps
+    its share of every microbatch. A block whose rows do not split evenly
+    over the ranks its rows are split over is replicated on them instead
+    (``fit_placements``, the rule by which the models' ``constrain`` drops
+    a ``"batch"`` split): every such rank runs the whole block, and
+    DTensor's gradient reduction counts it once."""
     from torch.distributed.tensor import DTensor, distribute_tensor
     out = [{} for _ in range(n)]
     for k, x in batch.items():
         rows = x.shape[0]
-        split = 1
-        if isinstance(x, DTensor):
-            split = math.prod(x.device_mesh.size(d) for d, p in
-                              enumerate(x.placements)
-                              if p.is_shard() and p.dim == 0)
-        if rows % (n * split):
+        if rows % n:
             raise ValueError(f"batch {k} of {rows} rows does not split into "
-                             f"{n} microbatches of whole shards over the "
-                             f"{split} ranks its rows are split over")
+                             f"{n} microbatches: {(rows, n)}")
         full = whole(x)
         blocks = full.reshape(n, rows // n, *full.shape[1:])
+        if isinstance(x, DTensor):
+            where = fit_placements(blocks.shape[1:], x.placements,
+                                   x.device_mesh)
         for i in range(n):
             out[i][k] = (blocks[i] if not isinstance(x, DTensor) else
-                         distribute_tensor(blocks[i], x.device_mesh,
-                                           list(x.placements),
+                         distribute_tensor(blocks[i], x.device_mesh, where,
                                            src_data_rank=None))
     return out

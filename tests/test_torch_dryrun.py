@@ -8,8 +8,9 @@ one subprocess for the whole module, with 4 host devices and a 2 x 2
 own ``make_production_mesh`` makes ``Explicit`` axes, on which its
 ``with_sharding_constraint`` calls fail: ROADMAP C12). There it lowers and
 compiles every arch x {train, prefill, decode} at the arch's smoke config
-(seq 64, batch 4, one microbatch) with ``lower_cell`` + ``analyse``. The
-port traces the same cells as rank 0 of a ``fake`` process group of 4
+(seq 64, batch 4, one microbatch) with ``lower_cell`` + ``analyse``, and
+qwen3-4b's train cell again with 4 microbatches of one row (ROADMAP C13).
+The port traces the same cells as rank 0 of a ``fake`` process group of 4
 ranks under ``FakeTensorMode`` (``trace_cell`` + ``analyse``), in this
 process while the reference runs; the group is destroyed after.
 
@@ -25,6 +26,7 @@ writes a sharded prefill and decode make and the decode attention by
 cache blocks, on four real gloo ranks, against the same on one device;
 and that the two modules import neither ``jax`` nor ``repro``.
 """
+import contextlib
 import json
 import math
 import os
@@ -72,6 +74,14 @@ FLOPS_GAPS = {
     ("deepseek-v2-lite-16b", "decode"): 0.2966,
 }
 
+# the train cells with one row per microbatch (BATCH microbatches) over
+# the 2 data ranks, each block replicated on them (ROADMAP C13): from 1 to
+# BATCH microbatches the port's projection gradients (autograd's
+# MmBackward0) grow where the reference's backward dots do not, on top of
+# the one-microbatch cell's gap (PERF.md section 6 names the ops, by
+# ``main`` below with ``--microbatches 4``)
+MICRO_ONE_ROW_GAPS = {"qwen3-4b": 0.0213, "deepseek-v2-lite-16b": 0.1456}
+
 _REFERENCE = textwrap.dedent("""
     import json, sys
     import jax
@@ -96,6 +106,12 @@ _REFERENCE = textwrap.dedent("""
                                                 rules)
             rec = RD.analyse(lowered, cfg, shape, mesh, arch, kind, None)
             out["records"][arch + "/" + kind] = rec
+    # a microbatch of one row over the 2 data ranks (ROADMAP C13)
+    for arch in %r:
+        lowered, cfg, shape = RD.lower_cell(arch, "smoke_train", mesh, rules,
+                                            microbatches=%d)
+        out["records"][arch + "/train/mb"] = RD.analyse(
+            lowered, cfg, shape, mesh, arch, "train", None)
     # the coloring cell at the smoke config, frontier on and off. With the
     # frontier on, jax 0.9 refuses the reference's frontier cond under
     # shard_map's varying-axes check (ROADMAP C1), so that program lowers
@@ -116,7 +132,7 @@ _REFERENCE = textwrap.dedent("""
             lowered, ccfg, None, mesh, "rmat-coloring", "coloring", None)
     with open(sys.argv[1], "w") as f:
         json.dump(out, f)
-""" % (SEQ, BATCH))
+""" % (SEQ, BATCH, tuple(MICRO_ONE_ROW_GAPS), BATCH))
 
 
 @pytest.fixture(scope="module")
@@ -141,6 +157,14 @@ def dry(tmp_path_factory):
                                                            kind))
                     port[f"{arch}/{kind}"] = D.analyse(trace, mesh, arch,
                                                        kind)
+            for arch in MICRO_ONE_ROW_GAPS:
+                trace = D.trace_cell(arch, "train", mesh, device="cpu",
+                                     cfg=get_smoke_config(arch),
+                                     shape=ShapeConfig("train", SEQ, BATCH,
+                                                       "train"),
+                                     microbatches=BATCH)
+                port[f"{arch}/train/mb"] = D.analyse(trace, mesh, arch,
+                                                     "train")
     finally:
         out, _ = proc.communicate(timeout=900)
     assert proc.returncode == 0, out[-3000:]
@@ -173,6 +197,20 @@ def test_cell_matches_the_reference(dry, arch, kind):
         <= p["memory_analysis"]["peak_memory_in_bytes"]
 
 
+@pytest.mark.parametrize("arch", list(MICRO_ONE_ROW_GAPS))
+def test_a_microbatch_smaller_than_the_data_ranks_traces(dry, arch):
+    """ROADMAP C13: the port traces the cell the reference lowers, with
+    the reference's argument bytes and model FLOPs, and its per-device
+    FLOPs at the named gap."""
+    ref, port = dry
+    r, p = ref["records"][f"{arch}/train/mb"], port[f"{arch}/train/mb"]
+    assert p["memory_analysis"]["argument_size_in_bytes"] == \
+        r["memory_analysis"]["argument_size_in_bytes"]
+    assert p["model_flops_per_device"] == r["model_flops_per_device"]
+    got, want = p["per_device"]["flops"], r["per_device"]["flops"]
+    assert abs(got / want - 1 - MICRO_ONE_ROW_GAPS[arch]) <= 1e-3, (got, want)
+
+
 # ---------------------------------------------------------------- by op
 # one cell's FLOPs op by op in both packages: the source of the names in
 # FLOPS_GAPS and PERF.md section 6; by hand, from the repository root:
@@ -185,14 +223,15 @@ _BY_OP_REFERENCE = textwrap.dedent("""
     from repro.configs import get_smoke_config
     from repro.models.config import ShapeConfig
     from repro.parallel.sharding import DEFAULT_RULES, rules_for_mesh
-    arch, kind, seq, batch = sys.argv[1], sys.argv[2], int(sys.argv[3]), \\
-        int(sys.argv[4])
+    arch, kind, seq, batch, mb = sys.argv[1], sys.argv[2], int(sys.argv[3]), \\
+        int(sys.argv[4]), int(sys.argv[5])
     mesh = jax.make_mesh((2, 2), ("data", "model"),
                          axis_types=(AxisType.Auto,) * 2)
     RD.get_config = get_smoke_config
     RD.SHAPES["cell"] = ShapeConfig("cell", seq, batch, kind)
     lowered, _, _ = RD.lower_cell(arch, "cell", mesh,
-                                  rules_for_mesh(mesh, DEFAULT_RULES))
+                                  rules_for_mesh(mesh, DEFAULT_RULES),
+                                  microbatches=mb)
     comps = H._split_computations(lowered.compile().as_text())
     edges, _, _, _ = H._analyze_structure(comps)
     mult, _ = H._multipliers(comps, edges)
@@ -214,24 +253,47 @@ _BY_OP_REFERENCE = textwrap.dedent("""
 """)
 
 
-def reference_by_op(arch, kind, seq, batch) -> dict:
+def reference_by_op(arch, kind, seq, batch, microbatches=1) -> dict:
     """The reference's per-device HLO dot FLOPs of one cell by ``op_name``
     (the jax source op and its phase: forward, ``transpose`` = backward,
     ``rematted_computation`` = recompute)."""
     env = dict(os.environ, PYTHONPATH=SRC, JAX_PLATFORMS="cpu",
                XLA_FLAGS="--xla_force_host_platform_device_count=4")
     out = subprocess.run([sys.executable, "-c", _BY_OP_REFERENCE, arch, kind,
-                          str(seq), str(batch)], env=env, capture_output=True,
-                         text=True, timeout=900)
+                          str(seq), str(batch), str(microbatches)], env=env,
+                         capture_output=True, text=True, timeout=900)
     if out.returncode:
         raise RuntimeError(out.stderr[-3000:])
     return json.loads(out.stdout.strip().splitlines()[-1])
 
 
-def port_by_op(arch, kind, seq, batch) -> dict:
-    """The port's per-device matmul FLOPs of the same cell by the model
-    source line that issued them (in the backward pass, the autograd node,
-    or the model line a recompute runs) and their phase."""
+def _model_frame(path: str) -> bool:
+    """Whether a source file is model code (not the dry run's or the train
+    step's own)."""
+    return "repro_torch" in path and "/launch/" not in path \
+        and not path.endswith("train_step.py")
+
+
+def _forward_site(node) -> str:
+    """The model line whose forward op made autograd node ``node``, from
+    the traceback anomaly mode keeps in its metadata; "" if none."""
+    import re
+    frames = re.findall(r'File "([^"]+)", line (\d+), in (\S+)\n\s*(.*)',
+                        "".join(node.metadata.get("traceback_", [])))
+    for path, line, fn, text in reversed(frames):
+        if _model_frame(path):
+            return f"{os.path.basename(path)}:{line} {fn}: {text[:60]}"
+    return ""
+
+
+@contextlib.contextmanager
+def _flops_by_site(forward_sites: bool = False):
+    """A Counter filled, while the context is open, with the port's
+    per-device matmul FLOPs by the model source line that issued them (in
+    the backward pass, the autograd node, or the model line a recompute
+    runs) and their phase. ``forward_sites`` names an autograd node with
+    the forward line that made it too (anomaly mode records each node's
+    traceback; its NaN check is off, fake tensors have no values)."""
     import collections
     import linecache
     from repro_torch.launch import hlo_analysis as H
@@ -246,10 +308,11 @@ def port_by_op(arch, kind, seq, batch) -> dict:
         node = torch._C._current_autograd_node()
         f, site = sys._getframe(1), (node.name() if node is not None
                                      else "?")
+        if node is not None and forward_sites:
+            site = f"{site} of {_forward_site(node) or '?'}"
         while f is not None:
             path = f.f_code.co_filename
-            if "repro_torch" in path and "/launch/" not in path \
-                    and not path.endswith("train_step.py"):
+            if _model_frame(path):
                 text = linecache.getline(path, f.f_lineno).strip()
                 site = (f"{os.path.basename(path)}:{f.f_lineno} "
                         f"{f.f_code.co_name}: {text[:60]}")
@@ -259,14 +322,36 @@ def port_by_op(arch, kind, seq, batch) -> dict:
         by[f"{phase} | {site}"] += stats.dot_flops - before
 
     H._count = attributed
+    anomaly = torch.autograd.set_detect_anomaly(forward_sites,
+                                                check_nan=False)
     try:
-        with D.fake_world(4):
-            mesh = make_mesh((2, 2), ("data", "model"), "cpu")
-            D.trace_cell(arch, kind, mesh, device="cpu",
-                         cfg=get_smoke_config(arch),
-                         shape=ShapeConfig(kind, seq, batch, kind))
+        with anomaly:
+            yield by
     finally:
         H._count = count
+
+
+def port_by_op(arch, kind, seq, batch, microbatches=1) -> dict:
+    """The port's per-device matmul FLOPs of the smoke cell by site
+    (``_flops_by_site``) on the 2 x 2 mesh of ``reference_by_op``."""
+    with _flops_by_site() as by, D.fake_world(4):
+        mesh = make_mesh((2, 2), ("data", "model"), "cpu")
+        D.trace_cell(arch, kind, mesh, device="cpu",
+                     cfg=get_smoke_config(arch),
+                     shape=ShapeConfig(kind, seq, batch, kind),
+                     microbatches=microbatches)
+    return by
+
+
+def production_by_op(arch, shape_name, multi_pod, microbatches, out_dir,
+                     device=None) -> dict:
+    """The port's per-device matmul FLOPs by site of one full-config cell
+    on a production mesh (a gradient's by its node and forward line), traced as ``launch.dryrun`` traces it (its
+    record written under ``out_dir``, its two lines printed). No reference
+    beside it: the reference lowers no full config on this host."""
+    with _flops_by_site(forward_sites=True) as by:
+        D.run_cell(arch, shape_name, multi_pod, out_dir,
+                   microbatches=microbatches, device=device)
     return by
 
 
@@ -749,22 +834,50 @@ def test_cli_runs_a_coloring_cell(tmp_path):
         assert math.prod(rec["mesh"]) == n
 
 
+def _print_table(title, table):
+    print(f"== {title}: {sum(table.values()):.6e}")
+    for key, v in sorted(table.items()):
+        print(f"  {v:14.0f}  {key}")
+
+
 def main():
-    """One cell's FLOPs op by op in both packages (see ``port_by_op``)."""
+    """One cell's FLOPs op by op in both packages (see ``port_by_op``), or,
+    with ``--production``, the port's alone at the full config on the
+    production meshes (``production_by_op``)."""
     import argparse
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True)
-    ap.add_argument("--kind", required=True, choices=KINDS)
+    ap.add_argument("--kind", choices=KINDS)
     ap.add_argument("--seq", type=int, default=SEQ)
     ap.add_argument("--batch", type=int, default=BATCH)
+    ap.add_argument("--microbatches", type=int, default=None,
+                    help="default: 1, or the arch's MICROBATCH_DEFAULTS "
+                         "with --production")
+    ap.add_argument("--production", choices=("pod", "multipod", "both"),
+                    help="the full config's --shape on the (16, 16) and/or "
+                         "(2, 16, 16) mesh, port only")
+    ap.add_argument("--shape", default="train_4k")
+    ap.add_argument("--out", default="results/dryrun_by_op")
+    ap.add_argument("--device", default=None,
+                    help="with --production: cuda (the default: fake CUDA "
+                         "tensors) or cpu")
     args = ap.parse_args()
-    cell = (args.arch, args.kind, args.seq, args.batch)
+    if args.production:
+        mb = args.microbatches or D.MICROBATCH_DEFAULTS.get(args.arch, 1)
+        for mp in (("pod", "multipod") if args.production == "both"
+                   else (args.production,)):
+            got = production_by_op(args.arch, args.shape, mp == "multipod",
+                                   mb, args.out, device=args.device)
+            _print_table(f"port {args.arch} {args.shape} {mp} (local "
+                         f"matmuls by source line)", got)
+        return
+    if args.kind is None:
+        ap.error("--kind is required without --production")
+    cell = (args.arch, args.kind, args.seq, args.batch,
+            args.microbatches or 1)
     ref, got = reference_by_op(*cell), port_by_op(*cell)
-    for title, table in (("reference (HLO dots by op_name)", ref),
-                         ("port (local matmuls by source line)", got)):
-        print(f"== {title}: {sum(table.values()):.6e}")
-        for key, v in sorted(table.items()):
-            print(f"  {v:14.0f}  {key}")
+    _print_table("reference (HLO dots by op_name)", ref)
+    _print_table("port (local matmuls by source line)", got)
     r, p = sum(ref.values()), sum(got.values())
     print(f"== port - reference: {p - r:+.6e} ({100 * (p / r - 1):+.2f} %)")
 

@@ -31,7 +31,8 @@ from repro_torch.launch import train as ltrain
 from repro_torch.models.params import param_axes, reference_leaves
 from repro_torch.parallel.sharding import (DEFAULT_RULES, Rules, Spec,
                                            activation_rules, constrain,
-                                           logical_to_spec, placements,
+                                           fit_placements, logical_to_spec,
+                                           placements,
                                            row_local, rules_for_mesh,
                                            spec_for_array, unshard)
 from repro_torch.train import AdamWConfig, TrainStepConfig
@@ -197,6 +198,21 @@ def test_placements_follow_the_mesh_axis_order():
     assert placements(spec, fake) == (Shard(0), Shard(0), Replicate())
     with pytest.raises(ValueError, match="axis order"):
         placements(Spec(("data", "pod"), None), fake)
+
+
+@pytest.mark.parametrize("shape", list(MESHES))
+def test_fit_placements_is_spec_for_arrays_rule(shape):
+    """A row split the mesh does not divide is dropped by the same rule on
+    placements (a microbatch's input) as on specs (``constrain``)."""
+    fake = FakeMesh(shape, MESHES[shape])
+    rules = rules_for_mesh(fake)
+    split = placements(Spec(("pod", "data") if len(shape) == 3 else "data",
+                            None), fake)
+    for rows in (1, 2, 4, 16, 32, 64):
+        want = placements(spec_for_array((rows, 8), ("batch", None), rules,
+                                         fake), fake)
+        assert fit_placements((rows, 8), split, fake) == want, rows
+    assert fit_placements((1, 8), split, fake) == (Replicate(),) * len(shape)
 
 
 def test_constrain_and_friends_are_the_identity_off_a_mesh():

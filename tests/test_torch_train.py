@@ -417,6 +417,18 @@ def test_microbatches_match_one_batch_and_the_reference(ref):
         _close(out[2][k], out[1][k], STEP_LOSS, k)
 
 
+def test_microbatches_are_row_blocks_or_refused():
+    """Microbatch ``i`` is block ``i`` of the rows (the reference's
+    ``reshape_mb``); rows that do not split into ``n`` blocks are refused,
+    as the reference asserts ``b % microbatches == 0``."""
+    batch = {"tokens": torch.arange(12).reshape(4, 3)}
+    mbs = tstep._microbatches(batch, 4)
+    assert [mb["tokens"].tolist() for mb in mbs] == \
+        [[[3 * i, 3 * i + 1, 3 * i + 2]] for i in range(4)]
+    with pytest.raises(ValueError, match=r"\(4, 3\)"):
+        tstep._microbatches(batch, 3)
+
+
 @pytest.mark.parametrize("arch", ["qwen3-4b", "deepseek-v2-lite-16b",
                                   "mamba2-130m", "whisper-medium"])
 def test_remat_is_bit_identical_on_the_cpu(arch):

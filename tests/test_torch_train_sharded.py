@@ -29,7 +29,9 @@ computes the reference's steps:
 * ``microbatches=2`` on 2 x 2 (microbatch ``i`` is block ``i`` of the
   global rows) against the reference's microbatched jitted step, for a
   dense arch and an MoE arch (whose aux loss is a product of
-  per-microbatch means, so it sees which rows form a microbatch);
+  per-microbatch means, so it sees which rows form a microbatch); and
+  ``microbatches=4``, one row per microbatch over the 2 data ranks (the
+  block is replicated on them);
 * ``build(mesh=)`` draws the one-device ``build``'s seed-0 params, and
   ``train_on_mesh`` repeats the one-device driver's losses;
 * ``make_mesh`` refuses several gloo ranks on the card.
@@ -60,7 +62,7 @@ from repro_torch.train import optimizer as topt
 from repro_torch.train import train_step as tstep
 
 B, T = 4, 16
-MICRO = ("qwen3-4b", "deepseek-v2-lite-16b")    # microbatches=2 on 2 x 2
+MICRO = ("qwen3-4b", "deepseek-v2-lite-16b")    # microbatches=2, 4 on 2 x 2
 OPT = dict(lr=1e-3, warmup_steps=2, total_steps=10)
 DRIVER = dict(arch="qwen3-4b", smoke=True, steps=3, batch=B, seq=T,
               log_every=1, ckpt_every=2)
@@ -188,13 +190,16 @@ def rank_sharded(pmesh, root):
     _save(rank, os.path.join(root, "port", "next@1"), _gathered(one, state1))
     out["restored_at"] = [at, at1]
 
-    # microbatches=2 on 2 x 2, against the reference's microbatched step
+    # microbatches=2 and 4 on 2 x 2, against the reference's microbatched
+    # step; 4 leaves one row per microbatch over the 2 data ranks
     for arch in MICRO:
-        _, params, _, state, _, m = sharded(
-            arch, (2, 2), tstep.TrainStepConfig(microbatches=2))
-        key = f"{arch}@2x2/mb2"
-        out["steps"][key] = _metrics(m)
-        _save(rank, os.path.join(root, "port", key), _gathered(params, state))
+        for n in (2, 4):
+            _, params, _, state, _, m = sharded(
+                arch, (2, 2), tstep.TrainStepConfig(microbatches=n))
+            key = f"{arch}@2x2/mb{n}"
+            out["steps"][key] = _metrics(m)
+            _save(rank, os.path.join(root, "port", key),
+                  _gathered(params, state))
 
     # several gloo ranks on the card are refused (the default device too)
     out["refused"] = []
@@ -264,7 +269,8 @@ def runs(tmp_path_factory):
     ref = {}
     try:
         ocfg = ropt.AdamWConfig(**OPT)
-        for arch, n in [(a, 1) for a in ARCH_IDS] + [(a, 2) for a in MICRO]:
+        for arch, n in [(a, 1) for a in ARCH_IDS] + \
+                [(a, n) for a in MICRO for n in (2, 4)]:
             cfg = dataclasses.replace(r_smoke(arch), dtype="float32")
             step = jax.jit(rstep.make_train_step(
                 cfg, ocfg, rstep.TrainStepConfig(microbatches=n)))
@@ -368,6 +374,22 @@ def test_restart_on_other_meshes_takes_the_same_next_step(runs):
                       want["params"], want["opt"])
 
 
+def _hold_microbatched(arch, n, runs):
+    """The 2 x 2 step with ``microbatches=n`` against the reference's
+    microbatched step under the step bars; its last-microbatch ``nll`` and
+    ``aux`` within the loss bar; the same metrics on every rank."""
+    from test_torch_train import STEP_LOSS
+    ranks, ref, root = runs
+    key = f"{arch}@2x2/mb{n}"
+    got = ranks[0]["steps"][key]
+    assert all(r["steps"][key] == got for r in ranks)
+    rm, rparams, rstate = ref[f"{arch}/mb{n}"]
+    _held_against(arch, _port(root, key), got, rm, rparams, rstate)
+    for k in ("nll", "aux"):
+        want = float(rm[k])
+        assert abs(got[k] - want) <= STEP_LOSS * max(1.0, abs(want)), k
+
+
 @pytest.mark.parametrize("arch", MICRO)
 def test_microbatches_are_global_row_blocks(arch, runs):
     """``microbatches=2`` on 2 x 2 (microbatch ``i`` is block ``i`` of the
@@ -376,16 +398,18 @@ def test_microbatches_are_global_row_blocks(arch, runs):
     last-microbatch ``nll`` and ``aux`` within the loss bar. The MoE
     arch's aux loss is a product of per-microbatch means, so a microbatch
     made of other rows (each rank's own rows split in two) misses it."""
-    from test_torch_train import STEP_LOSS
-    ranks, ref, root = runs
-    key = f"{arch}@2x2/mb2"
-    got = ranks[0]["steps"][key]
-    assert all(r["steps"][key] == got for r in ranks)
-    rm, rparams, rstate = ref[f"{arch}/mb2"]
-    _held_against(arch, _port(root, key), got, rm, rparams, rstate)
-    for k in ("nll", "aux"):
-        want = float(rm[k])
-        assert abs(got[k] - want) <= STEP_LOSS * max(1.0, abs(want)), k
+    _hold_microbatched(arch, 2, runs)
+
+
+@pytest.mark.parametrize("arch", MICRO)
+def test_a_microbatch_smaller_than_the_data_ranks(arch, runs):
+    """``microbatches=4`` on 2 x 2: each microbatch is one row, fewer rows
+    than the 2 data ranks it would split over, so every data rank runs the
+    whole row (the models' ``constrain`` drops that split too). The step is
+    the reference's microbatched step under the step bars, its
+    last-microbatch ``nll`` and ``aux`` within the loss bar: the replicated
+    row's gradient is counted once."""
+    _hold_microbatched(arch, 4, runs)
 
 
 def test_gloo_ranks_on_the_card_are_refused(runs):
