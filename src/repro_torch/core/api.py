@@ -36,6 +36,7 @@ from typing import Callable, Dict, NamedTuple, Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
+from ..kernels.ops import request_ids, span
 from .distance2 import MODELS, as_constraint_graph, constraint_host_graph
 from .engine import EngineSpec, MexBackend, get_backend
 from .distributed import PARTITION_SCHEMES, ProcessMesh
@@ -189,7 +190,8 @@ def _build_report(raw: RawColoring, spec: "ColoringSpec", strategy_name: str,
         raise RuntimeError(
             f"{strategy_name} did not converge within "
             f"max_rounds={spec.max_rounds} / max_sweeps={spec.max_sweeps}")
-    colors = raw.colors.cpu().numpy()
+    with span("sync.colors"):
+        colors = raw.colors.cpu().numpy()
     if perm is not None:
         colors = colors[perm]  # back to original vertex ids
     rounds = int(raw.rounds)
@@ -766,13 +768,14 @@ class ColoringPlan:
         return self._traces
 
     def _run(self, canon, *state) -> RawColoring:
-        if self._executor is not None:
-            return self._executor(canon, *state)
-        if self._program is None:
-            self._count_trace()
-            self._program = self.strategy.device_program(self.spec,
-                                                         self._backend)
-        return self._program(canon, *state)
+        with span("plan.run"):
+            if self._executor is not None:
+                return self._executor(canon, *state)
+            if self._program is None:
+                self._count_trace()
+                self._program = self.strategy.device_program(self.spec,
+                                                             self._backend)
+            return self._program(canon, *state)
 
     def _canonicalize(self, g) -> Tuple[object, Optional[np.ndarray]]:
         """Host graph -> (canonical input, relabel perm or None): lower the
@@ -780,34 +783,40 @@ class ColoringPlan:
         relabel, and — for device strategies — pad edges to the bucket and
         pin the static DeviceGraph fields to the plan envelope so every
         served graph has the same static signature. Host strategies get the
-        checked host constraint graph."""
+        checked host constraint graph. One graph's layout is the span
+        ``plan.layout``, carrying its request's id."""
         spec, st = self.spec, self.statics
-        host = constraint_host_graph(g, spec.model, side=spec.side)
-        if host.num_vertices != st.num_vertices:
-            raise ValueError(
-                f"plan compiled for {st.num_vertices} vertices, got a graph "
-                f"with {host.num_vertices}; compile a new plan")
-        perm = None
-        if spec.ordering != "natural":
-            perm = _invert_order(ORDERINGS[spec.ordering](host,
-                                                          spec.ordering_seed))
-            host = host.relabel(perm)
-        if host.num_directed_edges > st.padded_edges:
-            raise ValueError(
-                f"graph has {host.num_directed_edges} constraint edges, "
-                f"above the plan bucket {st.padded_edges}; compile a plan "
-                "from this graph (or a larger PlanShape)")
-        if host.max_degree() > st.max_degree:
-            raise ValueError(
-                f"graph max degree {host.max_degree()} exceeds the plan "
-                f"bound {st.max_degree}; compile a plan with a larger "
-                "PlanShape.max_degree (the color tables would drop forbids)")
-        if self.strategy.wants == "host":
-            return host, perm
-        layout = ("edges", "ell") if self._backend.needs_ell else "edges"
-        dg = host.to_device(layout=layout, pad_edges_to=st.padded_edges,
-                            ell_width=max(1, st.max_degree),
-                            device=self.device)
+        with span("plan.layout", request=request_ids(1)):
+            with span("layout.lower"):
+                host = constraint_host_graph(g, spec.model, side=spec.side)
+                if host.num_vertices != st.num_vertices:
+                    raise ValueError(
+                        f"plan compiled for {st.num_vertices} vertices, got "
+                        f"a graph with {host.num_vertices}; compile a new "
+                        "plan")
+                perm = None
+                if spec.ordering != "natural":
+                    perm = _invert_order(ORDERINGS[spec.ordering](
+                        host, spec.ordering_seed))
+                    host = host.relabel(perm)
+                if host.num_directed_edges > st.padded_edges:
+                    raise ValueError(
+                        f"graph has {host.num_directed_edges} constraint "
+                        f"edges, above the plan bucket {st.padded_edges}; "
+                        "compile a plan from this graph (or a larger "
+                        "PlanShape)")
+                if host.max_degree() > st.max_degree:
+                    raise ValueError(
+                        f"graph max degree {host.max_degree()} exceeds the "
+                        f"plan bound {st.max_degree}; compile a plan with a "
+                        "larger PlanShape.max_degree (the color tables "
+                        "would drop forbids)")
+            if self.strategy.wants == "host":
+                return host, perm
+            layout = ("edges", "ell") if self._backend.needs_ell else "edges"
+            dg = host.to_device(layout=layout, pad_edges_to=st.padded_edges,
+                                ell_width=max(1, st.max_degree),
+                                device=self.device)
         # the envelope bound sizes the color tables exactly as correctly
         # as the per-graph value, and keeps the signature constant
         dg = dataclasses.replace(dg, num_directed_edges=st.padded_edges,
@@ -833,15 +842,18 @@ class ColoringPlan:
         per-call state for strategies that take it (``"recolor"``:
         ``colors=``, ``seed=``); stateless strategies reject any."""
         t0 = time.perf_counter()
-        canon, perm = self._canonicalize(g)
-        state = self.strategy.plan_state(self.spec, self.statics, **runtime)
-        if self._degenerate:
-            # nothing to run, but a recolor warm start keeps its committed
-            # colors (non-seed vertices never change)
-            return _trivial_report(self.spec, self.statics.num_vertices, t0,
-                                   colors=runtime.get("colors"))
-        return _build_report(self._run(canon, *state), self.spec,
-                             self.strategy.name, perm, t0)
+        with span("plan.call", request=request_ids(1)):
+            canon, perm = self._canonicalize(g)
+            state = self.strategy.plan_state(self.spec, self.statics,
+                                             **runtime)
+            if self._degenerate:
+                # nothing to run, but a recolor warm start keeps its
+                # committed colors (non-seed vertices never change)
+                return _trivial_report(self.spec,
+                                       self.statics.num_vertices, t0,
+                                       colors=runtime.get("colors"))
+            return _build_report(self._run(canon, *state), self.spec,
+                                 self.strategy.name, perm, t0)
 
     def map(self, graphs: Sequence) -> list:
         """Color a batch of same-bucket graphs through ONE call of the
@@ -856,17 +868,21 @@ class ColoringPlan:
         if not graphs:
             return []
         t0 = time.perf_counter()
-        canons, perms = zip(*(self._canonicalize(g) for g in graphs))
-        if self._degenerate:
-            return [_trivial_report(self.spec, self.statics.num_vertices,
-                                    t0, batch_denom=len(graphs))
-                    for _ in graphs]
-        if self._batched is None:
-            self._batched = self.strategy.compile_batched(
-                self.spec, self.statics, self._count_trace)
-        return [_build_report(raw, self.spec, self.strategy.name, perm, t0,
-                              batch_denom=len(graphs))
-                for raw, perm in zip(self._batched(list(canons)), perms)]
+        with span("plan.map", request=request_ids(len(graphs))):
+            canons, perms = zip(*(self._canonicalize(g) for g in graphs))
+            if self._degenerate:
+                return [_trivial_report(self.spec,
+                                        self.statics.num_vertices, t0,
+                                        batch_denom=len(graphs))
+                        for _ in graphs]
+            if self._batched is None:
+                self._batched = self.strategy.compile_batched(
+                    self.spec, self.statics, self._count_trace)
+            with span("plan.run"):
+                raws = self._batched(list(canons))
+            return [_build_report(raw, self.spec, self.strategy.name, perm,
+                                  t0, batch_denom=len(graphs))
+                    for raw, perm in zip(raws, perms)]
 
 
 def _spec_device(spec: ColoringSpec, device: DeviceSpec) -> DeviceSpec:

@@ -24,7 +24,7 @@ import functools
 import numpy as np
 import torch
 
-from ..kernels.ops import report_path, report_state
+from ..kernels.ops import host_read, report_path, report_state, span
 from .engine import EngineSpec, SweepSpec, fixpoint_iterate, fixpoint_sweep
 from .frontier import compact_frontier, frontier_counts
 from .graph import BatchedGraph, DeviceGraph, DeviceSpec, batch_index
@@ -131,38 +131,40 @@ def _dataflow_impl(bg: BatchedGraph, *, max_sweeps: int, backend,
     nslab = np.zeros(B, np.int32)
     k = 0
     while still.any() and k < max_sweeps:
-        fits = np.zeros(B, np.bool_)
-        if k > 0:
-            nc, nce = np.array(torch.stack(
-                frontier_counts(chg, bg.inc_ptr)).tolist())
-            fits = still & (nc <= cap_v) & (nce <= cap_e)
-        if fits.any():
-            # dependents of the changed sets: one compaction of their rows
-            dslab = compact_frontier(
-                chg & torch.as_tensor(fits, device=dev)[:, None],
-                bg.inc_ptr, bg.dst, cap_v, cap_e)
-            active = _scatter_any(dslab.dst, (dslab.src < V)
-                                  & (dslab.dst > dslab.src), V)
-            nv, ne = np.array(torch.stack(
-                frontier_counts(active, bg.inc_ptr)).tolist())
-            ok = (nv <= cap_v) & (ne <= cap_e)
-            for path, mask in (("active sweep", fits & ok),
-                               ("slab spill", fits & ~ok)):
-                if mask.any():
-                    report_path(path)
-            fits &= ok
-        full = still & ~fits
-        if full.any():
-            cpad, chg = full_sweep(cpad, chg,
-                                   torch.as_tensor(full, device=dev))
-        if fits.any():
-            fits_t = torch.as_tensor(fits, device=dev)
-            cpad, chg = slab_sweep(cpad, chg, active & fits_t[:, None],
-                                   fits_t)
-        n += still
-        nslab += fits
-        still = still & np.array(chg.any(1).tolist(), np.bool_)
-        k += 1
+        with span("round"):
+            fits = np.zeros(B, np.bool_)
+            if k > 0:
+                nc, nce = np.array(host_read(torch.stack(
+                    frontier_counts(chg, bg.inc_ptr)), "changed_fit"))
+                fits = still & (nc <= cap_v) & (nce <= cap_e)
+            if fits.any():
+                # dependents of the changed sets: one compaction of their rows
+                dslab = compact_frontier(
+                    chg & torch.as_tensor(fits, device=dev)[:, None],
+                    bg.inc_ptr, bg.dst, cap_v, cap_e)
+                active = _scatter_any(dslab.dst, (dslab.src < V)
+                                      & (dslab.dst > dslab.src), V)
+                nv, ne = np.array(host_read(torch.stack(
+                    frontier_counts(active, bg.inc_ptr)), "active_fit"))
+                ok = (nv <= cap_v) & (ne <= cap_e)
+                for path, mask in (("active sweep", fits & ok),
+                                   ("slab spill", fits & ~ok)):
+                    if mask.any():
+                        report_path(path)
+                fits &= ok
+            full = still & ~fits
+            if full.any():
+                cpad, chg = full_sweep(cpad, chg,
+                                       torch.as_tensor(full, device=dev))
+            if fits.any():
+                fits_t = torch.as_tensor(fits, device=dev)
+                cpad, chg = slab_sweep(cpad, chg, active & fits_t[:, None],
+                                       fits_t)
+            n += still
+            nslab += fits
+            still = still & np.array(host_read(chg.any(1), "changed"),
+                                     np.bool_)
+            k += 1
     return cpad[:, :V], n, still, nslab
 
 

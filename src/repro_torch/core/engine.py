@@ -50,7 +50,7 @@ import torch
 
 from ..kernels.conflict import conflict_mask
 from ..kernels.firstfit import firstfit
-from ..kernels.ops import report_state
+from ..kernels.ops import host_read, report_state
 from ..kernels.ref import table_mex
 from ..kernels.round_fused import COLOR_MASK, FORBID_BIT, round_fused
 from .graph import batch_index
@@ -390,7 +390,7 @@ def fixpoint_iterate(update, x0, *, max_iters: int):
     x, changed, n = x0, True, 0
     while changed and n < max_iters:
         xn = update(x)
-        changed = bool(torch.any(xn != x))
+        changed = bool(host_read(torch.any(xn != x), "iterate"))
         x, n = xn, n + 1
     return x, n, changed
 
@@ -432,7 +432,7 @@ def fixpoint_sweep(mex: MexFn, spec: SweepSpec, colors0: torch.Tensor,
                           mex(spec.key_v, key_c).view(B, V), old)
         n += act
         act_t = act_t & (new != old).any(1)
-        act = np.array(act_t.tolist(), np.bool_)
+        act = np.array(host_read(act_t, "sweep"), np.bool_)
         cpad, k = torch.cat([new, cpad[:, V:]], 1), k + 1
     return cpad[:, :V], n, act
 

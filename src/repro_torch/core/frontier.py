@@ -33,7 +33,7 @@ from typing import NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
-from ..kernels.ops import report_state
+from ..kernels.ops import host_read, report_state
 from .engine import SlabMexFn, conflict_pending
 from .graph import batch_index, pad_bucket
 
@@ -245,7 +245,7 @@ def frontier_sweep(mex_slab: SlabMexFn, *, key_v: torch.Tensor,
         ok = (wok & act_t[:, None]).reshape(-1)
         n += act
         act_t = (ok & (mexv != flat[old_idx])).view(B, -1).any(1)
-        act = np.array(act_t.tolist(), np.bool_)
+        act = np.array(host_read(act_t, "slab_sweep"), np.bool_)
         buf = torch.cat([flat, flat.new_zeros(1)])
         buf.index_put_((torch.where(ok, widx, sink),), mexv)
         flat, k = buf[:sink], k + 1

@@ -41,6 +41,8 @@ from typing import Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
+from ..kernels.ops import span
+
 _LAYOUTS = ("edges", "csr", "ell")
 
 DeviceSpec = Union[None, str, torch.device]
@@ -300,14 +302,17 @@ class Graph:
         if unknown:
             raise ValueError(f"unknown layout(s) {sorted(unknown)}; "
                              f"choose from {_LAYOUTS}")
-        src, dst = self.directed_edges()
+        with span("layout.edges"):
+            src, dst = self.directed_edges()
         e = src.shape[0]
         pad = (pad_edges_to or e) - e
         if pad < 0:
             raise ValueError(f"pad_edges_to={pad_edges_to} < num edges {e}")
 
         def put(a: np.ndarray) -> torch.Tensor:
-            return torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(dev)
+            with span("layout.h2d", n=4 * a.size):
+                return torch.from_numpy(
+                    np.ascontiguousarray(a, np.int32)).to(dev)
 
         # incident-edge auxiliary (every layout): [V+1] int32 row pointers
         # into the row-contiguous directed edge list — what the frontier
@@ -324,22 +329,27 @@ class Graph:
             row_ptr_dev = put(self.row_ptr)
             col_idx_dev = put(self.col_idx)
         if "ell" in layouts:
-            width = max(1, int(ell_width if ell_width is not None
-                               else self.max_degree()))
-            # slot of each edge within its row; out-of-width and padding
-            # edges get ``width``: the engines' ELL scatters write them
-            # into a sink column that the kernel never reads
-            pos = np.arange(e, dtype=np.int64) - self.row_ptr[src]
-            slot = np.minimum(pos, width).astype(np.int32)
-            if pad:
-                slot = np.concatenate([slot, np.full(pad, width, np.int32)])
+            with span("layout.slots"):
+                width = max(1, int(ell_width if ell_width is not None
+                                   else self.max_degree()))
+                # slot of each edge within its row; out-of-width and
+                # padding edges get ``width``: the engines' ELL scatters
+                # write them into a sink column that the kernel never reads
+                pos = np.arange(e, dtype=np.int64) - self.row_ptr[src]
+                slot = np.minimum(pos, width).astype(np.int32)
+                if pad:
+                    slot = np.concatenate([slot,
+                                           np.full(pad, width, np.int32)])
             slot_dev = put(slot)
 
         if pad:
             # padding edges point at the phantom vertex V with src=V, so
             # they are inert in segment reductions over [0, V)
-            src = np.concatenate([src, np.full(pad, self.num_vertices, np.int32)])
-            dst = np.concatenate([dst, np.full(pad, self.num_vertices, np.int32)])
+            with span("layout.pad"):
+                src = np.concatenate(
+                    [src, np.full(pad, self.num_vertices, np.int32)])
+                dst = np.concatenate(
+                    [dst, np.full(pad, self.num_vertices, np.int32)])
         return DeviceGraph(
             num_vertices=self.num_vertices,
             num_directed_edges=e,

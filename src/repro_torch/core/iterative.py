@@ -35,7 +35,7 @@ import functools
 import numpy as np
 import torch
 
-from ..kernels.ops import report_path, report_state
+from ..kernels.ops import host_read, report_path, report_state, span
 from .engine import (EngineSpec, SweepSpec, fixpoint_sweep,
                      lockstep_offsets, speculation_conflicts)
 from .frontier import (compact_frontier, frontier_conflicts, frontier_counts,
@@ -164,42 +164,44 @@ def _iterative_impl(bg: BatchedGraph, colors0=None, pending0=None, *,
     conf_hist = np.zeros((B, max_rounds), np.int32)
     sweep_hist = np.zeros((B, max_rounds), np.int32)
     front_hist = np.zeros((B, max_rounds), np.int32)
-    left = np.array(pending.sum(1).tolist(), np.int64)
+    left = np.array(host_read(pending.sum(1), "pending"), np.int64)
     rounds = np.zeros(B, np.int32)
     rnd = 0
     while (left > 0).any() and rnd < max_rounds:
-        live = left > 0
-        rounds += live
-        # OpenMP-static lockstep offsets over each graph's pending set
-        offset = lockstep_offsets(pending, concurrency)
-        ppad = torch.cat([pending, pending.new_zeros((B, 1))], 1)
-        opad = torch.cat([offset, offset.new_full((B, 1), _INT32_MAX)], 1)
-        fits = np.zeros(B, np.bool_)
-        spill_test = use_frontier and (rnd > 0 or seed_frontier)
-        if spill_test:
-            nv, ne = np.array(torch.stack(
-                frontier_counts(pending, bg.inc_ptr)).tolist())
-            fits = live & (nv <= cap_v) & (ne <= cap_e)
-        full = live & ~fits
-        new_pending = torch.zeros_like(pending)
-        if full.any():
+        with span("round"):
+            live = left > 0
+            rounds += live
+            # OpenMP-static lockstep offsets over each graph's pending set
+            offset = lockstep_offsets(pending, concurrency)
+            ppad = torch.cat([pending, pending.new_zeros((B, 1))], 1)
+            opad = torch.cat([offset, offset.new_full((B, 1), _INT32_MAX)],
+                             1)
+            fits = np.zeros(B, np.bool_)
+            spill_test = use_frontier and (rnd > 0 or seed_frontier)
             if spill_test:
-                report_path("slab spill")
-            colors, n_sweeps, p = full_round(colors, pending, ppad, opad,
-                                             full)
-            new_pending |= p
-            sweep_hist[full, rnd] = n_sweeps[full]
-        if fits.any():
-            report_path("frontier round")
-            colors, n_sweeps, p = frontier_round(colors, pending, ppad, opad,
-                                                 fits)
-            new_pending |= p
-            sweep_hist[fits, rnd] = n_sweeps[fits]
-            front_hist[fits, rnd] = nv[fits]
-        pending = new_pending
-        left = np.array(pending.sum(1).tolist(), np.int64)
-        conf_hist[live, rnd] = left[live]
-        rnd += 1
+                nv, ne = np.array(host_read(torch.stack(
+                    frontier_counts(pending, bg.inc_ptr)), "frontier_fit"))
+                fits = live & (nv <= cap_v) & (ne <= cap_e)
+            full = live & ~fits
+            new_pending = torch.zeros_like(pending)
+            if full.any():
+                if spill_test:
+                    report_path("slab spill")
+                colors, n_sweeps, p = full_round(colors, pending, ppad,
+                                                 opad, full)
+                new_pending |= p
+                sweep_hist[full, rnd] = n_sweeps[full]
+            if fits.any():
+                report_path("frontier round")
+                colors, n_sweeps, p = frontier_round(colors, pending, ppad,
+                                                     opad, fits)
+                new_pending |= p
+                sweep_hist[fits, rnd] = n_sweeps[fits]
+                front_hist[fits, rnd] = nv[fits]
+            pending = new_pending
+            left = np.array(host_read(pending.sum(1), "pending"), np.int64)
+            conf_hist[live, rnd] = left[live]
+            rnd += 1
     return colors, rounds, conf_hist, sweep_hist, front_hist, left > 0
 
 

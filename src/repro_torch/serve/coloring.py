@@ -62,6 +62,7 @@ from ..core.api import (ColoringPlan, ColoringReport, ColoringSpec,
                         PlanShape, _plan_shape, compile_plan)
 from ..core.dynamic import DeltaReport, DynamicColoring
 from ..core.graph import DeviceSpec, resolve_device
+from ..kernels.ops import new_request, record, span
 from .metrics import WindowedMetrics
 
 Request = Union[object, Tuple[object, ColoringSpec]]  # graph | (graph, spec)
@@ -392,6 +393,8 @@ class _Pending:
     spec: Optional[ColoringSpec] = None
     inserts: Optional[np.ndarray] = None
     deletes: Optional[np.ndarray] = None
+    request: Optional[int] = None     # the id its spans carry
+    enqueue_ns: int = 0               # time.perf_counter_ns() at submit
 
 
 class AsyncColoringService:
@@ -485,7 +488,8 @@ class AsyncColoringService:
         key = ("color", spec, self.plans.envelope(spec, graph))
         return self._enqueue(_Pending(
             kind="color", tenant=tenant, key=key, enqueue_t=self._clock(),
-            handle=ServeHandle(), graph=graph, spec=spec))
+            handle=ServeHandle(), graph=graph, spec=spec,
+            request=new_request(), enqueue_ns=time.perf_counter_ns()))
 
     def submit_delta(self, tenant: str, inserts=None,
                      deletes=None) -> ServeHandle:
@@ -632,19 +636,26 @@ class AsyncColoringService:
         return served
 
     def _flush_color(self, key, batch, reason, t0) -> int:
+        # each request's queue wait (the span serve.queue, on the span
+        # log's clock) ends where its flush (serve.flush) starts
+        start_ns = time.perf_counter_ns()
+        for p in batch:
+            record("serve.queue", p.enqueue_ns, start_ns, request=p.request)
         _, spec, shape = key
-        plan, hit, _ = self.plans.get(spec, shape)
-        tr0 = plan.traces
-        use_map = len(batch) > 1 and plan.strategy.supports_map
-        if use_map:
-            # one run of the plan's batched program for the whole
-            # micro-batch. The reference pads to max_batch so that jit
-            # compiles one shape; the port's batched program is built once
-            # for any batch size, so a partial batch is not padded (padding
-            # would only color copies)
-            reports = plan.map([p.graph for p in batch])
-        else:
-            reports = [plan(p.graph) for p in batch]
+        with span("serve.flush", request=tuple(p.request for p in batch),
+                  n=len(batch)):
+            plan, hit, _ = self.plans.get(spec, shape)
+            tr0 = plan.traces
+            use_map = len(batch) > 1 and plan.strategy.supports_map
+            if use_map:
+                # one run of the plan's batched program for the whole
+                # micro-batch. The reference pads to max_batch so that jit
+                # compiles one shape; the port's batched program is built
+                # once for any batch size, so a partial batch is not padded
+                # (padding would only color copies)
+                reports = plan.map([p.graph for p in batch])
+            else:
+                reports = [plan(p.graph) for p in batch]
         t1 = self._clock()
         lats = [t1 - p.enqueue_t for p in batch]
         ages = [t0 - p.enqueue_t for p in batch]
