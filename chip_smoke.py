@@ -19,7 +19,8 @@ other phases colored.
               ``compile_plan`` (engine ``fused_pallas``, 16384 lockstep
               threads) serves seeds 0 and 1, then ``color()`` with
               ``ell_pallas`` on seed 0 must match bit for bit; the launch
-              counters must show every kernel ran;
+              counters must show every kernel ran, and ``csr_layout``
+              once per graph laid out;
 4. skew     — RMAT-B scale 16 (Delta 1999, 63-word bitsets) under
               ``ell_pallas``/``fused_pallas``/``sort``, all bit-identical;
               DATAFLOW on RMAT-G scale 16 equals serial greedy;
@@ -28,7 +29,11 @@ other phases colored.
               [262,144 x 617]: device ms per launch (CUDA events around a
               run of back-to-back launches), the bound (the bytes these
               inputs need, at 3.35 TB/s), launches per colored graph, the
-              plain version's ms;
+              plain version's ms; and ``csr_layout`` (which replaces no
+              TPU kernel: the layout of ``Graph.to_device``) at the
+              scale-22 shapes of RMAT-ER and RMAT-G (max degree ~880),
+              its launches on phase 3's main path (one per graph laid
+              out, counted from 0 there);
 6. models   — distance-2 coloring of RMAT-ER scale 18 (G^2: Delta 617, 20
               bitset words, the kernels' wide path) through a
               ``compile_plan`` with ``model="d2"`` and ``fused_pallas``,
@@ -492,6 +497,58 @@ def real_slabs(g, colors, w):
                         lambda: round_fused_plain(ent, c, words=w),
                         4 * V * D + 4 * V + 8 * V, 6 * V * D),
     }
+
+
+def layout_runs(g):
+    """csr_layout at graph ``g``'s shape as a plan lays it out (edges padded
+    to the plan's bucket, an ELL slab of the max degree), as a closure
+    (run, plain, bytes, operations): ``row_ptr`` read once; ``src``, the
+    slot map, ``dst``'s padding and ``inc_ptr`` written once. Each of run
+    and plain returns ``(src, ell_slot, inc_ptr, dst)``."""
+    import numpy as np
+    import torch
+    from repro_torch.core import pad_bucket
+    from repro_torch.kernels import csr_layout, csr_layout_plain
+    dev = torch.device("cuda")
+    V, e = g.num_vertices, g.num_directed_edges
+    P, w = pad_bucket(e), max(1, g.max_degree())
+    row_ptr = torch.from_numpy(np.ascontiguousarray(g.row_ptr, np.int64)).to(dev)
+    col_idx = torch.from_numpy(np.ascontiguousarray(g.col_idx, np.int32)).to(dev)
+
+    def dst_of():
+        # -1 in the padding, so a padding write left out shows
+        dst = torch.full((P,), -1, dtype=torch.int32, device=dev)
+        dst[:e].copy_(col_idx)
+        return dst
+
+    # each version writes its own dst, so the padding is compared too
+    dst_k, dst_p = dst_of(), dst_of()
+    return (lambda: (*csr_layout(row_ptr, dst_k, e, w), dst_k),
+            lambda: (*csr_layout_plain(row_ptr, dst_p, e, w), dst_p),
+            12 * (V + 1) + 8 * P + 4 * (P - e), 4 * P)
+
+
+def timed(name, run, plain, nbytes, nops):
+    """A kernel against its plain version (exact), then its device ms per
+    launch (50 back to back, median of 5), its bound (the larger of bytes
+    at 3.35 TB/s and operations at the CUDA-core rate) and the plain
+    version's ms."""
+    got, want = run(), plain()
+    if isinstance(got, tuple):
+        err = max(max_abs_err(a, b) for a, b in zip(got, want))
+    else:
+        err = max_abs_err(got, want)
+    assert err == 0, f"{name} disagrees with its plain version"
+    ms = device_ms(run, 50)
+    plain_ms = device_ms(plain, 3, runs=3)
+    bytes_ms = 1e3 * nbytes / HBM_BYTES_PER_S
+    ops_ms = 1e3 * nops / INT_OPS_PER_S
+    by = "bytes" if bytes_ms >= ops_ms else "operations"
+    bound = max(bytes_ms, ops_ms)
+    log(f"phase 5 {name}: {ms:.4f} ms (bound {bound:.4f} ms by {by}, "
+        f"{nbytes / 1e6:.1f} MB; {100 * bound / ms:.1f}% of roofline); "
+        f"plain {plain_ms:.3f} ms")
+    return err, ms, plain_ms, bound, by
 
 
 def check_real_slab(tag, g, colors, w, errors):
@@ -2636,8 +2693,8 @@ def main(argv=None) -> int:
                                   rmat, validate_coloring)
     from repro_torch.core.engine import num_color_words
     from repro_torch.kernels import (KERNELS, conflict_mask,
-                                     conflict_mask_plain, launch_counts,
-                                     reset_launch_counts)
+                                     conflict_mask_plain, csr_layout,
+                                     launch_counts, reset_launch_counts)
     from repro_torch.kernels import _build
 
     dev = torch.device("cuda")
@@ -2693,6 +2750,7 @@ def main(argv=None) -> int:
                         concurrency=CONCURRENCY)
     torch.cuda.reset_peak_memory_stats()
     reset_launch_counts()
+    csr_layout.launches = 0   # not a port of a TPU kernel: counted apart
     plan = compile_plan(spec, shape, device="cuda")
     reports = []
     for seed, g in enumerate(graphs):
@@ -2705,6 +2763,9 @@ def main(argv=None) -> int:
         reports.append(rep)
     assert plan.traces == 1, f"plan.traces={plan.traces}"
     fused_counts = launch_counts()
+    fused_layouts = csr_layout.launches
+    assert fused_layouts == len(graphs), \
+        f"csr_layout launched {fused_layouts} times for {len(graphs)} graphs"
     t = time.perf_counter()
     ell = color(graphs[0], ColoringSpec(strategy="iterative",
                                         engine="ell_pallas",
@@ -2714,10 +2775,15 @@ def main(argv=None) -> int:
     describe("phase 3 color() ell_pallas seed=0", graphs[0], ell,
              time.perf_counter() - t)
     main_counts = launch_counts()
+    main_layouts = csr_layout.launches
+    assert main_layouts == len(graphs) + 1, \
+        f"csr_layout launched {main_layouts} times for {len(graphs) + 1} " \
+        "graphs laid out"
     assert same_report(ell, reports[0]), \
         "ell_pallas and fused_pallas differ on seed 0"
-    log(f"phase 3 launches: plan (2 graphs, fused_pallas) {fused_counts}; "
-        f"whole main path {main_counts}")
+    log(f"phase 3 launches: plan (2 graphs, fused_pallas) {fused_counts}, "
+        f"csr_layout {fused_layouts}; whole main path {main_counts}, "
+        f"csr_layout {main_layouts} (one per graph laid out)")
     for name, n in main_counts.items():
         assert n > 0, f"kernel {name} was never launched on the main path"
     peak = torch.cuda.max_memory_allocated()
@@ -2813,24 +2879,6 @@ def main(argv=None) -> int:
         12 * E + 8 * ties, 3 * E)
     graphs_per_kernel = {"firstfit": 1, "round_fused": 2, "conflict_mask": 3}
 
-    def timed(name, run, plain, nbytes, nops):
-        got, want = run(), plain()
-        if isinstance(got, tuple):
-            err = max(max_abs_err(a, b) for a, b in zip(got, want))
-        else:
-            err = max_abs_err(got, want)
-        assert err == 0, f"{name} disagrees with its plain version"
-        ms = device_ms(run, 50)
-        plain_ms = device_ms(plain, 3, runs=3)
-        bytes_ms = 1e3 * nbytes / HBM_BYTES_PER_S
-        ops_ms = 1e3 * nops / INT_OPS_PER_S
-        by = "bytes" if bytes_ms >= ops_ms else "operations"
-        bound = max(bytes_ms, ops_ms)
-        log(f"phase 5 {name}: {ms:.4f} ms (bound {bound:.4f} ms by {by}, "
-            f"{nbytes / 1e6:.1f} MB; {100 * bound / ms:.1f}% of roofline); "
-            f"plain {plain_ms:.3f} ms")
-        return err, ms, plain_ms, bound, by
-
     rows = []
     for k in KERNELS:
         err, ms, plain_ms, bound, by = timed(k.name, *runs[k.name])
@@ -2857,6 +2905,24 @@ def main(argv=None) -> int:
     log(f"phase 5 d2 shape: [{V} x {D}], W={d2_words}")
     for name, args in d2_runs.items():
         timed(f"{name} (d2)", *args)
+    # the layout kernel at the scale-22 shapes of both configurations
+    for family, g in (("RMAT-ER", graphs[0]),
+                      ("RMAT-G", rmat.paper_graph("RMAT-G", SCALE_MAIN,
+                                                  seed=0))):
+        log(f"phase 5 layout shape {family}: V={g.num_vertices} "
+            f"E={g.num_directed_edges} padded={pad_bucket(g.num_directed_edges)} "
+            f"max_degree={g.max_degree()}")
+        err, ms, plain_ms, bound, by = timed(f"csr_layout ({family})",
+                                             *layout_runs(g))
+        rows.append({
+            "name": "csr_layout", "shape": family, "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/csr_layout.cu",
+            "replaces": None,
+            "launches": main_layouts if family == "RMAT-ER" else None,
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound, "bound_by": by, "library_ms": None,
+            "launches_by_path": None,
+        })
     log("phase 5 timings: ok")
 
     print(json.dumps({"kernels": rows}), flush=True)

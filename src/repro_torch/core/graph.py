@@ -41,6 +41,7 @@ from typing import Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
+from ..kernels.csr_layout import csr_layout
 from ..kernels.ops import span
 
 _LAYOUTS = ("edges", "csr", "ell")
@@ -134,7 +135,7 @@ class Graph:
         return self.num_directed_edges // 2
 
     def degrees(self) -> np.ndarray:
-        return np.diff(self.row_ptr).astype(np.int64)
+        return np.diff(self.row_ptr).astype(np.int64, copy=False)
 
     def max_degree(self) -> int:
         d = self.degrees()
@@ -286,7 +287,8 @@ class Graph:
                   ell_width: Optional[int] = None,
                   device: DeviceSpec = None) -> "DeviceGraph":
         """Move the graph onto ``device`` (``None`` = the card) in the
-        requested layout(s).
+        requested layout(s): the CSR is copied as it is, and expanded on
+        the device into the rest (``repro_torch.kernels.csr_layout``).
 
         layout: ``"edges"`` (directed edge list — always present),
             ``"csr"`` (adds ``row_ptr``/``col_idx``), ``"ell"`` (adds the
@@ -302,65 +304,51 @@ class Graph:
         if unknown:
             raise ValueError(f"unknown layout(s) {sorted(unknown)}; "
                              f"choose from {_LAYOUTS}")
-        with span("layout.edges"):
-            src, dst = self.directed_edges()
-        e = src.shape[0]
-        pad = (pad_edges_to or e) - e
-        if pad < 0:
+        e = self.num_directed_edges
+        padded = pad_edges_to or e
+        if padded < e:
             raise ValueError(f"pad_edges_to={pad_edges_to} < num edges {e}")
-
-        def put(a: np.ndarray) -> torch.Tensor:
-            with span("layout.h2d", n=4 * a.size):
-                return torch.from_numpy(
-                    np.ascontiguousarray(a, np.int32)).to(dev)
-
-        # incident-edge auxiliary (every layout): [V+1] int32 row pointers
-        # into the row-contiguous directed edge list — what the frontier
-        # layer compacts an active vertex set through
-        fits32 = self.num_directed_edges <= np.iinfo(np.int32).max
-        inc_ptr_dev = put(self.row_ptr) if fits32 else None
-
-        row_ptr_dev = col_idx_dev = slot_dev = None
-        width = 0
-        if "csr" in layouts:
-            if not fits32:
-                raise ValueError("csr device layout needs 2E < 2^31; "
-                                 f"got {self.num_directed_edges} edges")
-            row_ptr_dev = put(self.row_ptr)
-            col_idx_dev = put(self.col_idx)
+        if "csr" in layouts and e > np.iinfo(np.int32).max:
+            raise ValueError("csr device layout needs 2E < 2^31; "
+                             f"got {e} edges")
+        max_degree = self.max_degree()
+        width = None
         if "ell" in layouts:
-            with span("layout.slots"):
-                width = max(1, int(ell_width if ell_width is not None
-                                   else self.max_degree()))
-                # slot of each edge within its row; out-of-width and
-                # padding edges get ``width``: the engines' ELL scatters
-                # write them into a sink column that the kernel never reads
-                pos = np.arange(e, dtype=np.int64) - self.row_ptr[src]
-                slot = np.minimum(pos, width).astype(np.int32)
-                if pad:
-                    slot = np.concatenate([slot,
-                                           np.full(pad, width, np.int32)])
-            slot_dev = put(slot)
+            width = max(1, int(ell_width if ell_width is not None
+                               else max_degree))
 
-        if pad:
-            # padding edges point at the phantom vertex V with src=V, so
-            # they are inert in segment reductions over [0, V)
-            with span("layout.pad"):
-                src = np.concatenate(
-                    [src, np.full(pad, self.num_vertices, np.int32)])
-                dst = np.concatenate(
-                    [dst, np.full(pad, self.num_vertices, np.int32)])
+        # the CSR as it is: col_idx into the head of dst, row_ptr in int64
+        dst = torch.empty((padded,), dtype=torch.int32, device=dev)
+        with span("layout.h2d", n=4 * e):
+            dst[:e].copy_(torch.from_numpy(
+                np.ascontiguousarray(self.col_idx, np.int32)))
+        with span("layout.h2d", n=8 * (self.num_vertices + 1)):
+            row_ptr = torch.from_numpy(
+                np.ascontiguousarray(self.row_ptr, np.int64)).to(dev)
+        # expanded on the device: src, the ELL slot map (out-of-width and
+        # padding edges get ``width``: the engines' ELL scatters write them
+        # into a sink column that the kernel never reads), dst's padding
+        # (padding edges point at the phantom vertex V with src=V, so they
+        # are inert in segment reductions over [0, V)) and the incident-edge
+        # auxiliary (every layout; None when 2E does not fit int32): [V+1]
+        # int32 row pointers into the row-contiguous directed edge list —
+        # what the frontier layer compacts an active vertex set through
+        with span("layout.build", n=padded):
+            src, slot, inc_ptr = csr_layout(row_ptr, dst, e, width)
+        row_ptr_dev = col_idx_dev = None
+        if "csr" in layouts:
+            row_ptr_dev, col_idx_dev = inc_ptr.clone(), dst[:e].clone()
         return DeviceGraph(
             num_vertices=self.num_vertices,
             num_directed_edges=e,
-            src=put(src),
-            dst=put(dst),
-            max_degree=self.max_degree(),
+            src=src,
+            dst=dst,
+            max_degree=max_degree,
             row_ptr=row_ptr_dev,
             col_idx=col_idx_dev,
-            ell_slot=slot_dev,
-            ell_width=width,
-            inc_ptr=inc_ptr_dev,
+            ell_slot=slot,
+            ell_width=width or 0,
+            inc_ptr=inc_ptr,
         )
 
     def to_ell(self, max_degree: Optional[int] = None) -> Tuple[np.ndarray, np.ndarray]:

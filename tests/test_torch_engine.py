@@ -103,26 +103,69 @@ def test_pad_bucket_matches_reference():
         assert T.pad_bucket(n, min_bucket=8) == R.graph.pad_bucket(n, min_bucket=8)
 
 
-@pytest.mark.parametrize("pad", [False, True])
-def test_device_layout_matches_reference(pad, graphs):
-    gr, gt = graphs["RMAT-G"]
-    kw = dict(layout=("edges", "csr", "ell"),
-              pad_edges_to=T.pad_bucket(gr.num_directed_edges) if pad else None)
+# the layout's edge cases beside the R-MAT graphs: isolated vertices, runs
+# of empty rows and an empty last row; no vertex; no edge
+LAYOUT_GRAPHS = {
+    "isolated": (12, [(1, 3), (3, 4), (1, 4), (6, 7), (2, 9)]),
+    "V0": (0, np.zeros((0, 2), np.int64)),
+    "E0": (5, np.zeros((0, 2), np.int64)),
+}
+LAYOUT_FIELDS = ("src", "dst", "row_ptr", "col_idx", "ell_slot", "inc_ptr")
+LAYOUT_CASES = [
+    (graph, pad, layout, narrow)
+    for graph in ("RMAT-ER", "RMAT-G", *LAYOUT_GRAPHS)
+    for pad in (False, True)
+    for layout in ("edges", ("edges", "ell"), ("edges", "csr", "ell"))
+    for narrow in ((False, True) if "ell" in layout else (False,))
+    if not narrow or graph in ("RMAT-G", "isolated")]
+
+
+def _layout_id(case):
+    graph, pad, layout, narrow = case
+    layout = "+".join((layout,) if isinstance(layout, str) else layout)
+    return (f"{graph}-{'pad' if pad else 'nopad'}-{layout}"
+            + ("-narrow" if narrow else ""))
+
+
+def _layout_graphs(graph, graphs):
+    if graph in graphs:
+        return graphs[graph]
+    v, edges = LAYOUT_GRAPHS[graph]
+    return R.Graph.from_edges(v, edges), T.Graph.from_edges(v, edges)
+
+
+@pytest.mark.parametrize("case", LAYOUT_CASES, ids=_layout_id)
+def test_device_layout_matches_reference(case, graphs):
+    """The port's ``to_device`` (the CSR expanded by ``csr_layout``'s plain
+    version on the CPU) equals the reference's numpy layout, field by
+    field: padded or not, each layout, and an ELL width below the max
+    degree (rows cut into the sink column)."""
+    graph, pad, layout, narrow = case
+    gr, gt = _layout_graphs(graph, graphs)
+    assert not narrow or gr.max_degree() >= 2
+    kw = dict(layout=layout,
+              pad_edges_to=(T.pad_bucket(max(1, gr.num_directed_edges))
+                            if pad else None),
+              ell_width=gr.max_degree() // 2 if narrow else None)
     dr, dt = gr.to_device(**kw), gt.to_device(**kw, device="cpu")
-    for f in ("src", "dst", "row_ptr", "col_idx", "ell_slot", "inc_ptr"):
-        got = getattr(dt, f)
+    for f in LAYOUT_FIELDS:
+        got, want = getattr(dt, f), getattr(dr, f)
+        if want is None:
+            assert got is None, f
+            continue
         assert got.dtype == torch.int32, f
-        np.testing.assert_array_equal(got.numpy(), np.asarray(getattr(dr, f)), f)
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want), f)
     for f in ("num_vertices", "num_directed_edges", "max_degree", "ell_width",
               "padded_edges", "has_ell", "has_frontier", "has_csr"):
         assert getattr(dt, f) == getattr(dr, f), f
+    if layout != ("edges", "csr", "ell"):
+        return
     # the carry-across function rebuilds the identical layout
-    fields = {f: np.asarray(getattr(dr, f)) for f in
-              ("src", "dst", "row_ptr", "col_idx", "ell_slot", "inc_ptr")}
+    fields = {f: np.asarray(getattr(dr, f)) for f in LAYOUT_FIELDS}
     fields.update({f: getattr(dr, f) for f in ("num_vertices", "max_degree",
                                                "num_directed_edges", "ell_width")})
     dc = device_graph_from_arrays(fields, device="cpu")
-    for f in ("src", "dst", "row_ptr", "col_idx", "ell_slot", "inc_ptr"):
+    for f in LAYOUT_FIELDS:
         assert torch.equal(getattr(dc, f), getattr(dt, f)), f
     hc = graph_from_arrays(gr.num_vertices, gr.row_ptr, gr.col_idx)
     np.testing.assert_array_equal(hc.col_idx, gt.col_idx)

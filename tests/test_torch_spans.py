@@ -28,8 +28,7 @@ from repro_torch.kernels import ops
 from repro_torch.serve.coloring import AsyncColoringService
 
 CPU = torch.device("cpu")
-LAYOUT_CHILDREN = {"layout.lower", "layout.edges", "layout.slots",
-                   "layout.pad", "layout.h2d"}
+LAYOUT_CHILDREN = {"layout.lower", "layout.build", "layout.h2d"}
 SPECS = {
     "iterative-off": ColoringSpec(strategy="iterative",
                                   engine="fused_pallas", frontier="off"),
@@ -207,7 +206,7 @@ def test_one_plan_call_nests_layer_by_layer(mode):
     top = [recs[i].name for i in kids[0]]
     assert top == ["plan.layout", "plan.run", "sync.colors"]
     layout = names.index("plan.layout")
-    assert plan.statics.padded_edges > g.num_directed_edges  # layout.pad
+    assert plan.statics.padded_edges > g.num_directed_edges  # padded
     assert {recs[i].name for i in kids[layout]} == LAYOUT_CHILDREN
     run = names.index("plan.run")
     assert {recs[i].name for i in kids[run]} == {"round"} | (
@@ -225,10 +224,13 @@ def test_one_plan_call_nests_layer_by_layer(mode):
     assert {r.thread for r in recs} == {threading.get_ident()}
     assert all(r.end_ns is not None and r.end_ns >= r.start_ns
                for r in recs)
-    # the copies carry their bytes: src, dst, slot map, incident pointers
+    # the copies carry their bytes: the CSR as it is, col_idx (int32) and
+    # row_ptr (int64); the build its padded edge count
     h2d = [r.n for r in recs if r.name == "layout.h2d"]
-    padded = plan.statics.padded_edges
-    assert sorted(h2d) == sorted([4 * padded] * 3 + [4 * (g.num_vertices + 1)])
+    assert sorted(h2d) == sorted([4 * g.num_directed_edges,
+                                  8 * (g.num_vertices + 1)])
+    assert [r.n for r in recs if r.name == "layout.build"] == [
+        plan.statics.padded_edges]
     summary = ops.summary()
     assert all(s["self_s"] >= 0 and s["self_s"] <= s["total_s"] + 1e-12
                for s in summary.values())
