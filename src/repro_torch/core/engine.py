@@ -50,7 +50,7 @@ import torch
 
 from ..kernels.conflict import conflict_mask
 from ..kernels.firstfit import firstfit
-from ..kernels.ops import host_read, report_state
+from ..kernels.ops import host_read, report_state, span
 from ..kernels.ref import table_mex
 from ..kernels.round_fused import COLOR_MASK, FORBID_BIT, round_fused
 from .graph import batch_index
@@ -198,10 +198,14 @@ class SortMexBackend(MexBackend):
         V = num_vertices
 
         def mex(key_v, key_c):
-            # synthetic (v, 0) pairs guarantee every segment is populated
-            syn_v = torch.arange(V, dtype=torch.int32, device=key_v.device)
-            return segment_mex(torch.cat([key_v, syn_v]),
-                               torch.cat([key_c, torch.zeros_like(syn_v)]), V)
+            # synthetic (v, 0) pairs guarantee every segment is populated;
+            # the span counts every pair sorted, theirs included
+            with span("mex.sort", n=int(key_v.shape[0]) + V):
+                syn_v = torch.arange(V, dtype=torch.int32,
+                                     device=key_v.device)
+                return segment_mex(
+                    torch.cat([key_v, syn_v]),
+                    torch.cat([key_c, torch.zeros_like(syn_v)]), V)
 
         return mex
 

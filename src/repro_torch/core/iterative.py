@@ -187,14 +187,16 @@ def _iterative_impl(bg: BatchedGraph, colors0=None, pending0=None, *,
             if full.any():
                 if spill_test:
                     report_path("slab spill")
-                colors, n_sweeps, p = full_round(colors, pending, ppad,
-                                                 opad, full)
+                with span("round.full", n=bg.src.numel()):
+                    colors, n_sweeps, p = full_round(colors, pending, ppad,
+                                                     opad, full)
                 new_pending |= p
                 sweep_hist[full, rnd] = n_sweeps[full]
             if fits.any():
                 report_path("frontier round")
-                colors, n_sweeps, p = frontier_round(colors, pending, ppad,
-                                                     opad, fits)
+                with span("round.frontier", n=B * cap_e):
+                    colors, n_sweeps, p = frontier_round(colors, pending,
+                                                         ppad, opad, fits)
                 new_pending |= p
                 sweep_hist[fits, rnd] = n_sweeps[fits]
                 front_hist[fits, rnd] = nv[fits]

@@ -214,6 +214,12 @@ def test_one_plan_call_nests_layer_by_layer(mode):
     for i, r in enumerate(recs):
         if r.name == "round":
             assert kids[i] and all(
+                recs[j].name.startswith(("sync.", "kernel.", "round."))
+                for j in kids[i])
+        if r.name.startswith("round."):
+            # an ITERATIVE round's branch: its sweeps and conflict pass
+            assert recs[r.parent].name == "round"
+            assert kids[i] and all(
                 recs[j].name.startswith(("sync.", "kernel."))
                 for j in kids[i])
         if r.name.startswith("sync.") or r.name.startswith("layout."):
