@@ -22,7 +22,8 @@ other phases colored.
               counters must show every kernel ran, and ``csr_layout``
               once per graph laid out;
 4. skew     — RMAT-B scale 16 (Delta 1999, 63-word bitsets) under
-              ``ell_pallas``/``fused_pallas``/``sort``, all bit-identical;
+              ``ell_pallas``/``fused_pallas``/``sort``, all bit-identical,
+              ``sort`` launching ``sorted_mex`` once a sweep;
               DATAFLOW on RMAT-G scale 16 equals serial greedy;
 5. timings  — each kernel at the main path's shapes, and the two slab
               kernels also at the RMAT-B skew shape and at the d2 slab
@@ -33,7 +34,10 @@ other phases colored.
               TPU kernel: the layout of ``Graph.to_device``) at the
               scale-22 shapes of RMAT-ER and RMAT-G (max degree ~880),
               its launches on phase 3's main path (one per graph laid
-              out, counted from 0 there);
+              out, counted from 0 there); and ``sorted_mex`` (the ``sort``
+              engine's segment-min, which replaces no TPU kernel either)
+              at ``b21.oneshot``'s full-sweep shape, its launches those of
+              phase 4's ``sort`` run;
 6. models   — distance-2 coloring of RMAT-ER scale 18 (G^2: Delta 617, 20
               bitset words, the kernels' wide path) through a
               ``compile_plan`` with ``model="d2"`` and ``fused_pallas``,
@@ -526,6 +530,36 @@ def layout_runs(g):
     return (lambda: (*csr_layout(row_ptr, dst_k, e, w), dst_k),
             lambda: (*csr_layout_plain(row_ptr, dst_p, e, w), dst_p),
             12 * (V + 1) + 8 * P + 4 * (P - e), 4 * P)
+
+
+def mex_runs(seed=21):
+    """sorted_mex at ``b21.oneshot``'s full-sweep shape, as a closure (run,
+    plain, bytes, operations): M = 2^25 padded edges + 2^21 synthetic pairs,
+    V = 2^21, half the edges on the inert id, 64 hubs of 13,000 pairs,
+    colors 0-39, sorted on the card as ``segment_mex`` sorts them. Bytes:
+    each pair of a live vertex read once (the kernel's warps skip the
+    inert tail) and the [V] result written once."""
+    import torch
+    from repro_torch.kernels import sorted_mex, sorted_mex_plain
+    dev = torch.device("cuda")
+    V, E = 1 << 21, 1 << 25
+    gen = torch.Generator(dev).manual_seed(seed)
+    ids = torch.randint(0, V, (E // 2,), generator=gen, device=dev)
+    hubs = torch.randint(0, V, (64,), generator=gen, device=dev)
+    ids[:64 * 13_000] = hubs.repeat_interleave(13_000)
+    vertex = torch.cat([ids.int(),
+                        torch.full((E - E // 2,), V, dtype=torch.int32,
+                                   device=dev),
+                        torch.arange(V, dtype=torch.int32, device=dev)])
+    color = torch.cat([
+        torch.randint(0, 40, (E,), generator=gen, device=dev).int(),
+        torch.zeros(V, dtype=torch.int32, device=dev)])
+    order = torch.sort(vertex.long() * (1 << 32) + color.long()).indices
+    v_s, c_s = vertex[order], color[order]
+    live = int((v_s < V).sum())
+    return (lambda: sorted_mex(v_s, c_s, V),
+            lambda: sorted_mex_plain(v_s, c_s, V),
+            8 * live + 4 * V, 4 * v_s.numel(), v_s.numel(), live, V)
 
 
 def timed(name, run, plain, nbytes, nops):
@@ -2694,7 +2728,8 @@ def main(argv=None) -> int:
     from repro_torch.core.engine import num_color_words
     from repro_torch.kernels import (KERNELS, conflict_mask,
                                      conflict_mask_plain, csr_layout,
-                                     launch_counts, reset_launch_counts)
+                                     launch_counts, reset_launch_counts,
+                                     sorted_mex)
     from repro_torch.kernels import _build
 
     dev = torch.device("cuda")
@@ -2818,6 +2853,7 @@ def main(argv=None) -> int:
         f"E={gb.num_directed_edges} max_degree={gb.max_degree()} "
         f"W={skew_words}")
     skew = {}
+    sorted_mex.launches = 0   # not a port of a TPU kernel: counted apart
     for engine in ("ell_pallas", "fused_pallas", "sort"):
         t = time.perf_counter()
         skew[engine] = color(gb, ColoringSpec(strategy="iterative",
@@ -2829,6 +2865,11 @@ def main(argv=None) -> int:
         assert validate_coloring(gb, skew[engine].colors)
         assert same_report(skew[engine], skew["ell_pallas"]), \
             f"{engine} differs from ell_pallas on RMAT-B"
+    skew_mex_launches = sorted_mex.launches
+    log(f"phase 4 sorted_mex launched {skew_mex_launches} times in the sort "
+        f"engine's {skew['sort'].sweeps} sweeps")
+    assert skew_mex_launches == skew["sort"].sweeps, \
+        "the sort engine skipped its segment-min kernel"
     gg = rmat.paper_graph("RMAT-G", SCALE_SKEW, seed=0)
     t = time.perf_counter()
     df = color(gg, ColoringSpec(strategy="dataflow", engine="fused_pallas"),
@@ -2923,6 +2964,21 @@ def main(argv=None) -> int:
             "bound_ms": bound, "bound_by": by, "library_ms": None,
             "launches_by_path": None,
         })
+    # the sort engine's segment-min at b21.oneshot's full-sweep shape
+    run, plain, nbytes, nops, M, live, V = mex_runs()
+    log(f"phase 5 sorted_mex shape: M={M} pairs ({live} of live vertices), "
+        f"V={V}; all pairs and the result at 3.35 TB/s: "
+        f"{1e3 * (8 * M + 4 * V) / HBM_BYTES_PER_S:.4f} ms")
+    err, ms, plain_ms, bound, by = timed("sorted_mex (b21 full sweep)", run,
+                                         plain, nbytes, nops)
+    rows.append({
+        "name": "sorted_mex", "shape": "b21 full sweep", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/sorted_mex.cu",
+        "replaces": None, "launches": skew_mex_launches,
+        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+        "bound_ms": bound, "bound_by": by, "library_ms": None,
+        "launches_by_path": None,
+    })
     log("phase 5 timings: ok")
 
     print(json.dumps({"kernels": rows}), flush=True)

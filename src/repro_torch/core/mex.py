@@ -6,7 +6,9 @@ Given a multiset of (vertex, forbidden-color) pairs, compute per vertex the
 minimum *positive* integer not present: sort the pairs lexicographically
 (two stable sorts — by color, then by vertex), emit a candidate ``c+1``
 wherever a gap occurs (next entry belongs to another vertex, or skips past
-``c+1``), and take the segment-min of the candidates.
+``c+1``), and take the segment-min of the candidates
+(:func:`repro_torch.kernels.sorted_mex`: a CUDA kernel on the card, plain
+PyTorch on the CPU).
 
 Callers must guarantee every live vertex contributes at least one entry;
 ``SortMexBackend.bind`` appends a synthetic ``(v, 0)`` pair per vertex.
@@ -15,7 +17,7 @@ from __future__ import annotations
 
 import torch
 
-_INT32_MAX = torch.iinfo(torch.int32).max
+from ..kernels.sorted_mex import sorted_mex
 
 
 def segment_mex(vertex: torch.Tensor, color: torch.Tensor,
@@ -23,7 +25,7 @@ def segment_mex(vertex: torch.Tensor, color: torch.Tensor,
     """Per-vertex minimum excluded positive color.
 
     vertex: [M] int32 ids in [0, num_vertices]; id == num_vertices is inert
-        padding (its segment is computed then discarded).
+        padding (it takes no mex).
     color:  [M] int32 >= 0 forbidden colors.
     Returns [num_vertices] int32 mex (>= 1); ``INT32_MAX`` for vertices with
     no entries.
@@ -34,12 +36,4 @@ def segment_mex(vertex: torch.Tensor, color: torch.Tensor,
     c_order = torch.sort(color, stable=True).indices
     v_order = torch.sort(vertex[c_order], stable=True).indices
     order = c_order[v_order]
-    v_s, c_s = vertex[order], color[order]
-    next_v = torch.cat([v_s[1:], v_s.new_full((1,), num_vertices + 1)])
-    next_c = torch.cat([c_s[1:], c_s.new_zeros(1)])
-    gap = (next_v != v_s) | (next_c > c_s + 1)
-    cand = torch.where(gap, c_s + 1, torch.full_like(c_s, _INT32_MAX))
-    mex = torch.full((num_vertices + 1,), _INT32_MAX, dtype=torch.int32,
-                     device=vertex.device)
-    mex.scatter_reduce_(0, v_s.long(), cand, "amin")
-    return mex[:num_vertices]
+    return sorted_mex(vertex[order], color[order], num_vertices)

@@ -1,6 +1,6 @@
 """Hand-written CUDA kernels for Hopper (``sm_90a``) and their plain
 PyTorch versions — the ports of the repository's three Pallas TPU kernels,
-and one kernel that replaces none.
+and two kernels that replace none.
 
 firstfit    — bitmask first-fit over ELL neighbor-color slabs (Alg. 1 5-6)
 round_fused — the firstfit mex and the Alg. 2 conflict predicate in ONE
@@ -11,6 +11,9 @@ csr_layout  — a graph's device layout (edge list, ELL slot map, padding)
               expanded from its CSR, once per ``Graph.to_device``; the
               reference builds it on the host, so it is not in
               :data:`KERNELS`, the ports of the ``pl.pallas_call`` kernels
+sorted_mex  — the ``sort`` engine's segment-min over sorted (vertex, color)
+              pairs, every sweep of that engine; the reference takes it
+              with XLA's ``segment_min``, so it is not in :data:`KERNELS`
 
 Each wrapper launches its kernel for CUDA tensors (raising if it cannot)
 and takes its ``*_plain`` version for CPU tensors; ``<wrapper>.launches``
@@ -25,12 +28,13 @@ from .ops import (KERNELS, ell_gather_colors, ell_mex, launch_counts,
 from .round_fused import (COLOR_MASK, CONFLICT_BIT, FORBID_BIT, pack_entries,
                           round_fused, round_fused_plain,
                           tile_conflict_counts)
+from .sorted_mex import sorted_mex, sorted_mex_plain
 
 __all__ = [
     "firstfit", "firstfit_plain", "round_fused", "round_fused_plain",
     "conflict_mask", "conflict_mask_plain", "csr_layout",
-    "csr_layout_plain", "pack_entries", "COLOR_MASK",
-    "FORBID_BIT", "CONFLICT_BIT", "KERNELS", "launch_counts",
+    "csr_layout_plain", "sorted_mex", "sorted_mex_plain", "pack_entries",
+    "COLOR_MASK", "FORBID_BIT", "CONFLICT_BIT", "KERNELS", "launch_counts",
     "reset_launch_counts", "ell_gather_colors", "ell_mex",
     "tile_conflict_counts",
 ]

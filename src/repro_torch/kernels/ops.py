@@ -111,9 +111,11 @@ def kernel_attributes(name: str, *, words: int = 1, width: int = 1) -> dict:
     ``name`` picks for a ``words``-word bitset over rows of ``width``
     (the bulk-copy variant; the conflict kernel has one), beside the block
     size the launcher asks for and the card's opt-in shared memory per
-    block. Needs the card."""
+    block. Needs the card. ``sorted_mex``, which ports no TPU kernel, is
+    asked for after the kernels of :data:`KERNELS`."""
     from . import _build
     ids = {k.name: i for i, k in enumerate(KERNELS)}
+    ids["sorted_mex"] = len(KERNELS)
     if name not in ids:
         raise ValueError(f"unknown kernel {name!r}; choose from {sorted(ids)}")
     lib = _build.load()

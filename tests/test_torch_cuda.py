@@ -509,6 +509,141 @@ def test_plan_layout_on_card_equals_cpu(strategy, card, monkeypatch):
 
 
 # --------------------------------------------------------------------------
+# the sort engine's segment-min (sorted_mex) on the card
+# --------------------------------------------------------------------------
+def _segments(lengths, seed, num_vertices, sink=0):
+    """Sorted (vertex, color) pairs as int32 numpy arrays: segment ``i``
+    of ``lengths[i]`` pairs for vertex ``i``, its colors by ``i % 4``:
+    0..L-1 (one gap, at its end), 0..L-1 with random holes, 0, 2, 4, ...
+    (every pair a gap) or repeats of few colors. Then ``sink`` pairs of the
+    inert id ``num_vertices``."""
+    rng = np.random.default_rng(seed)
+    vs, cs = [], []
+    for i, n in enumerate(lengths):
+        kind = i % 4
+        if kind == 0:
+            c = np.arange(n)
+        elif kind == 1:
+            c = np.sort(rng.choice(n + n // 8 + 1, n, replace=False))
+        elif kind == 2:
+            c = 2 * np.arange(n)
+        else:
+            c = np.sort(rng.integers(0, 3, n))
+        vs.append(np.full(n, i))
+        cs.append(c)
+    vs.append(np.full(sink, num_vertices))
+    cs.append(np.sort(rng.integers(0, 9, sink)))
+    return (np.concatenate(vs).astype(np.int32),
+            np.concatenate(cs).astype(np.int32))
+
+
+def _mex_on_card(v, c, num_vertices, card, offset=(0, 0)):
+    """sorted_mex against its plain version on the card, one launch; the
+    inputs start ``offset`` int32 words past their allocations' bases."""
+    from repro_torch.kernels import sorted_mex, sorted_mex_plain
+
+    def placed(x, k):
+        buf = torch.zeros(x.size + k, dtype=torch.int32, device=card)
+        buf[k:] = torch.from_numpy(x).to(card)
+        return buf[k:]
+
+    vs, cs = placed(v, offset[0]), placed(c, offset[1])
+    before = sorted_mex.launches
+    got = sorted_mex(vs, cs, num_vertices)
+    assert sorted_mex.launches == before + (1 if v.size else 0)
+    want = sorted_mex_plain(vs, cs, num_vertices)
+    torch.cuda.synchronize()
+    _equal(got, want)
+    return got
+
+
+MEX_LENGTHS = {
+    # runs across lanes (32), warp chunks (512 pairs), blocks (4,096) alike
+    "straddle": [1, 2, 31, 32, 33, 1, 511, 512, 513, 3, 4095, 4096, 4097,
+                 7, 9000, 1, 1, 30, 600, 5000] * 3,
+    "short": [1, 2, 3, 5] * 700,
+    "one-pair": [1],
+}
+MEX_CASES = [(k, sink, off) for k in MEX_LENGTHS for sink in (0, 5_003)
+             for off in ((0, 0), (1, 0), (0, 3))]
+
+
+@pytest.mark.parametrize("lengths,sink,offset", MEX_CASES,
+                         ids=[f"{k}-sink{s}-off{o[0]}{o[1]}"
+                              for k, s, o in MEX_CASES])
+def test_sorted_mex_matches_plain_on_card(lengths, sink, offset, card):
+    """Segments straddling lanes, the kernel's 512-pair warp chunks and its
+    4,096-pair blocks, with and without an inert tail, M not a multiple of
+    4, bases off a 16-byte boundary."""
+    sizes = MEX_LENGTHS[lengths]
+    v, c = _segments(sizes, len(sizes) + sink, len(sizes) + 2, sink)
+    _mex_on_card(v, c, len(sizes) + 2, card, offset)
+
+
+def test_sorted_mex_on_a_hub_of_gaps_and_on_empty_input(card):
+    """A 13,000-pair hub whose every pair is a gap (colors 0, 2, 4, ...),
+    with no other vertex; no pair at all."""
+    none = 2**31 - 1
+    hub = 2 * np.arange(13_000, dtype=np.int32)
+    got = _mex_on_card(np.full(13_000, 1, np.int32), hub, 3, card)
+    assert got.tolist() == [none, 1, none]
+    empty = np.zeros(0, np.int32)
+    assert _mex_on_card(empty, empty, 4, card).tolist() == [none] * 4
+
+
+def test_sorted_mex_at_the_b21_full_sweep_shape(card):
+    """``b21.oneshot``'s round-0 sweep: M = 2^25 padded edges + 2^21
+    synthetic pairs, V = 2^21, about half the pairs on the inert id, hubs
+    of ~13,000 pairs, sorted on the card as ``segment_mex`` sorts them."""
+    V, E = 1 << 21, 1 << 25
+    gen = torch.Generator(card).manual_seed(21)
+    live = E // 2
+    # skewed ids: a few hubs of ~13,000 pairs, the rest uniform
+    hubs = torch.randint(0, V, (64,), generator=gen, device=card)
+    ids = torch.randint(0, V, (live,), generator=gen, device=card)
+    ids[:64 * 13_000] = hubs.repeat_interleave(13_000)
+    vertex = torch.cat([ids.int(), torch.full((E - live,), V, dtype=torch.int32,
+                                              device=card),
+                        torch.arange(V, dtype=torch.int32, device=card)])
+    color = torch.randint(0, 40, (E,), generator=gen, device=card).int()
+    color = torch.cat([color, torch.zeros(V, dtype=torch.int32, device=card)])
+    order = torch.sort(vertex.long() * (1 << 32) + color.long()).indices
+    v_s, c_s = vertex[order], color[order]
+    assert v_s.numel() == 35_651_584
+    from repro_torch.kernels import sorted_mex, sorted_mex_plain
+    before = sorted_mex.launches
+    got = sorted_mex(v_s, c_s, V)
+    assert sorted_mex.launches == before + 1
+    _equal(got, sorted_mex_plain(v_s, c_s, V))
+
+
+def test_sort_engine_on_card_equals_cpu_and_launches_once_a_sweep(card):
+    """One RMAT-B ITERATIVE run on the sort engine: the CPU run's colors
+    and per-round conflicts, and one sorted_mex launch per ``mex.sort``
+    span (every sweep, full and slab)."""
+    from repro_torch.kernels import ops, sorted_mex
+    g = T.rmat.paper_graph("RMAT-B", 11, seed=2)
+    ops.disable()
+    ops.reset()
+    before = sorted_mex.launches
+    ops.enable()
+    try:
+        got = T.color_iterative(g, concurrency=64, engine="sort")
+    finally:
+        ops.disable()
+    spans = sum(r.name == "mex.sort" for r in ops.spans())
+    ops.reset()
+    assert spans > 0 and sorted_mex.launches - before == spans
+    want = T.color_iterative(g, concurrency=64, engine="sort", device="cpu")
+    np.testing.assert_array_equal(got.colors, want.colors)
+    assert got.rounds == want.rounds
+    np.testing.assert_array_equal(got.conflicts_per_round,
+                                  want.conflicts_per_round)
+    np.testing.assert_array_equal(got.sweeps_per_round,
+                                  want.sweeps_per_round)
+
+
+# --------------------------------------------------------------------------
 # the LM training lane on the card
 # --------------------------------------------------------------------------
 @pytest.mark.parametrize("arch", ["qwen3-4b", "mamba2-130m", "whisper-medium",
