@@ -19,8 +19,7 @@ other phases colored.
               ``compile_plan`` (engine ``fused_pallas``, 16384 lockstep
               threads) serves seeds 0 and 1, then ``color()`` with
               ``ell_pallas`` on seed 0 must match bit for bit; the launch
-              counters must show every kernel ran, and ``csr_layout``
-              once per graph laid out;
+              counters must show each of the path's kernels ran;
 4. skew     — RMAT-B scale 16 (Delta 1999, 63-word bitsets) under
               ``ell_pallas``/``fused_pallas``/``sort``, all bit-identical,
               ``sort`` launching ``sorted_mex`` once a sweep;
@@ -30,13 +29,9 @@ other phases colored.
               [262,144 x 617]: device ms per launch (CUDA events around a
               run of back-to-back launches), the bound (the bytes these
               inputs need, at 3.35 TB/s), launches per colored graph, the
-              plain version's ms; and ``csr_layout`` (which replaces no
-              TPU kernel: the layout of ``Graph.to_device``) at the
-              scale-22 shapes of RMAT-ER and RMAT-G (max degree ~880),
-              its launches on phase 3's main path (one per graph laid
-              out, counted from 0 there); and ``sorted_mex`` (the ``sort``
-              engine's segment-min, which replaces no TPU kernel either)
-              at ``b21.oneshot``'s full-sweep shape, its launches those of
+              plain version's ms; and ``sorted_mex`` (the ``sort``
+              engine's segment-min, which replaces no TPU kernel) at
+              ``b21.oneshot``'s full-sweep shape, its launches those of
               phase 4's ``sort`` run;
 6. models   — distance-2 coloring of RMAT-ER scale 18 (G^2: Delta 617, 20
               bitset words, the kernels' wide path) through a
@@ -94,7 +89,7 @@ other phases colored.
               too; whisper-medium is held with one key chunk over its 1500
               frames, and its error as configured, where the full forward
               attends to zero-padded keys as the reference's does, is
-              printed). The lane launches none of the three kernels;
+              printed). The lane launches none of the kernels;
 12. train   — the LM training lane: ``python -m repro_torch.launch.train``'s
               ``main`` trains mamba2-130m at its full config (batch 8, seq
               512, 40 steps, asynchronous checkpoints every 20), then a
@@ -107,7 +102,7 @@ other phases colored.
               the card and on CPU tensors from the same weights and batch;
               every other arch but grok-1-314b takes one step at phase
               11's widths and depth cuts. The lane launches none of the
-              three kernels;
+              kernels;
 13. train-sharded — the sharded trainer (``launch.train.build(mesh=)``,
               DTensor params and moments over a ``("data", "model")``
               mesh) on qwen3-4b at full width cut to 2 layers, float32.
@@ -196,6 +191,9 @@ import time
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory rate
 INT_OPS_PER_S = 67e12       # H100 SXM CUDA-core rate (no tensor cores)
 INT32_MAX = 2**31 - 1
+# what ITERATIVE and DATAFLOW launch on the ELL engines (sorted_mex is the
+# sort engine's)
+ELL_KERNELS = ("firstfit", "round_fused", "conflict_mask")
 SCALE_MAIN = 22
 SCALE_SKEW = 16
 CONCURRENCY = 16384
@@ -503,35 +501,6 @@ def real_slabs(g, colors, w):
     }
 
 
-def layout_runs(g):
-    """csr_layout at graph ``g``'s shape as a plan lays it out (edges padded
-    to the plan's bucket, an ELL slab of the max degree), as a closure
-    (run, plain, bytes, operations): ``row_ptr`` read once; ``src``, the
-    slot map, ``dst``'s padding and ``inc_ptr`` written once. Each of run
-    and plain returns ``(src, ell_slot, inc_ptr, dst)``."""
-    import numpy as np
-    import torch
-    from repro_torch.core import pad_bucket
-    from repro_torch.kernels import csr_layout, csr_layout_plain
-    dev = torch.device("cuda")
-    V, e = g.num_vertices, g.num_directed_edges
-    P, w = pad_bucket(e), max(1, g.max_degree())
-    row_ptr = torch.from_numpy(np.ascontiguousarray(g.row_ptr, np.int64)).to(dev)
-    col_idx = torch.from_numpy(np.ascontiguousarray(g.col_idx, np.int32)).to(dev)
-
-    def dst_of():
-        # -1 in the padding, so a padding write left out shows
-        dst = torch.full((P,), -1, dtype=torch.int32, device=dev)
-        dst[:e].copy_(col_idx)
-        return dst
-
-    # each version writes its own dst, so the padding is compared too
-    dst_k, dst_p = dst_of(), dst_of()
-    return (lambda: (*csr_layout(row_ptr, dst_k, e, w), dst_k),
-            lambda: (*csr_layout_plain(row_ptr, dst_p, e, w), dst_p),
-            12 * (V + 1) + 8 * P + 4 * (P - e), 4 * P)
-
-
 def mex_runs(seed=21):
     """sorted_mex at ``b21.oneshot``'s full-sweep shape, as a closure (run,
     plain, bytes, operations): M = 2^25 padded edges + 2^21 synthetic pairs,
@@ -750,8 +719,8 @@ def phase_models():
         f"equal to greedy_color_d2")
     counts = launch_counts()
     log(f"phase 6 launches: {counts}")
-    for name, n in counts.items():
-        assert n > 0, f"kernel {name} was never launched in phase 6"
+    for name in ELL_KERNELS:
+        assert counts[name] > 0, f"kernel {name} was never launched in phase 6"
     log("phase 6 models: ok")
     return out, counts
 
@@ -1345,13 +1314,13 @@ def phase_analysis(graphs, main_report, models, gb, dist_ranks):
               "d2": (num_color_words(d2_shape.max_degree + 1),
                      d2_shape.max_degree)}
     for k in KERNELS:
+        slab = k.name in ("firstfit", "round_fused")
         for tag, (w, d) in shapes.items():
-            if k.name == "conflict_mask" and tag != "main":
+            if not slab and tag != "main":
                 continue
             a = kernel_attributes(k.name, words=w, width=d)
             assert a["registers"] > 0 and a["max_threads"] >= \
                 a["block_threads"] > 0, (k.name, tag, a)
-            slab = k.name != "conflict_mask"
             log(f"phase 10 {k.name} [{tag}" + (f", W={w}" if slab else "")
                 + f"]: {a['registers']} registers, {a['local_bytes']} B "
                 f"local, {a['static_smem_bytes']} B static shared, block "
@@ -2641,8 +2610,9 @@ def phase_batched(errors):
         f"{map_counts['round_fused']} launches, loop "
         f"{loop_counts['round_fused']}; wall loop {loop_wall:.3f} s, map "
         f"{map_wall:.3f} s")
-    for name, n in map_total.items():
-        assert n > 0, f"kernel {name} was never launched by a batched map"
+    for name in ELL_KERNELS:
+        assert map_total[name] > 0, \
+            f"kernel {name} was never launched by a batched map"
     log(f"phase 15 batched: ok; map launches {map_total}")
     return map_total
 
@@ -2670,8 +2640,7 @@ def phase_examples() -> dict:
     import contextlib
     import io
     import shutil
-    from repro_torch.kernels import KERNELS, launch_counts, \
-        reset_launch_counts
+    from repro_torch.kernels import launch_counts, reset_launch_counts
     t0 = time.perf_counter()
     ckpt = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
                         "examples_ckpt")
@@ -2683,7 +2652,7 @@ def phase_examples() -> dict:
              ("serve_lm_torch", []),
              ("train_lm_torch", ["--ckpt-dir", ckpt])]
     reset_launch_counts()
-    total = {k.name: 0 for k in KERNELS}
+    total = dict.fromkeys(ELL_KERNELS, 0)
     for name, argv in runs:
         before = launch_counts()
         t = time.perf_counter()
@@ -2727,9 +2696,8 @@ def main(argv=None) -> int:
                                   rmat, validate_coloring)
     from repro_torch.core.engine import num_color_words
     from repro_torch.kernels import (KERNELS, conflict_mask,
-                                     conflict_mask_plain, csr_layout,
-                                     launch_counts, reset_launch_counts,
-                                     sorted_mex)
+                                     conflict_mask_plain, launch_counts,
+                                     reset_launch_counts)
     from repro_torch.kernels import _build
 
     dev = torch.device("cuda")
@@ -2785,7 +2753,6 @@ def main(argv=None) -> int:
                         concurrency=CONCURRENCY)
     torch.cuda.reset_peak_memory_stats()
     reset_launch_counts()
-    csr_layout.launches = 0   # not a port of a TPU kernel: counted apart
     plan = compile_plan(spec, shape, device="cuda")
     reports = []
     for seed, g in enumerate(graphs):
@@ -2798,9 +2765,6 @@ def main(argv=None) -> int:
         reports.append(rep)
     assert plan.traces == 1, f"plan.traces={plan.traces}"
     fused_counts = launch_counts()
-    fused_layouts = csr_layout.launches
-    assert fused_layouts == len(graphs), \
-        f"csr_layout launched {fused_layouts} times for {len(graphs)} graphs"
     t = time.perf_counter()
     ell = color(graphs[0], ColoringSpec(strategy="iterative",
                                         engine="ell_pallas",
@@ -2810,17 +2774,13 @@ def main(argv=None) -> int:
     describe("phase 3 color() ell_pallas seed=0", graphs[0], ell,
              time.perf_counter() - t)
     main_counts = launch_counts()
-    main_layouts = csr_layout.launches
-    assert main_layouts == len(graphs) + 1, \
-        f"csr_layout launched {main_layouts} times for {len(graphs) + 1} " \
-        "graphs laid out"
     assert same_report(ell, reports[0]), \
         "ell_pallas and fused_pallas differ on seed 0"
-    log(f"phase 3 launches: plan (2 graphs, fused_pallas) {fused_counts}, "
-        f"csr_layout {fused_layouts}; whole main path {main_counts}, "
-        f"csr_layout {main_layouts} (one per graph laid out)")
-    for name, n in main_counts.items():
-        assert n > 0, f"kernel {name} was never launched on the main path"
+    log(f"phase 3 launches: plan (2 graphs, fused_pallas) {fused_counts}; "
+        f"whole main path {main_counts}")
+    for name in ELL_KERNELS:
+        assert main_counts[name] > 0, \
+            f"kernel {name} was never launched on the main path"
     peak = torch.cuda.max_memory_allocated()
     t = time.perf_counter()
     graphs[0].to_device(layout=("edges", "ell"), pad_edges_to=shape.padded_edges,
@@ -2853,7 +2813,7 @@ def main(argv=None) -> int:
         f"E={gb.num_directed_edges} max_degree={gb.max_degree()} "
         f"W={skew_words}")
     skew = {}
-    sorted_mex.launches = 0   # not a port of a TPU kernel: counted apart
+    before_mex = launch_counts()["sorted_mex"]
     for engine in ("ell_pallas", "fused_pallas", "sort"):
         t = time.perf_counter()
         skew[engine] = color(gb, ColoringSpec(strategy="iterative",
@@ -2865,7 +2825,7 @@ def main(argv=None) -> int:
         assert validate_coloring(gb, skew[engine].colors)
         assert same_report(skew[engine], skew["ell_pallas"]), \
             f"{engine} differs from ell_pallas on RMAT-B"
-    skew_mex_launches = sorted_mex.launches
+    skew_mex_launches = launch_counts()["sorted_mex"] - before_mex
     log(f"phase 4 sorted_mex launched {skew_mex_launches} times in the sort "
         f"engine's {skew['sort'].sweeps} sweeps")
     assert skew_mex_launches == skew["sort"].sweeps, \
@@ -2922,6 +2882,8 @@ def main(argv=None) -> int:
 
     rows = []
     for k in KERNELS:
+        if k.name not in runs:  # sorted_mex: at b21's shape, below
+            continue
         err, ms, plain_ms, bound, by = timed(k.name, *runs[k.name])
         launches = main_counts[k.name]
         log(f"  {k.name} launches on the main path {launches} "
@@ -2946,24 +2908,6 @@ def main(argv=None) -> int:
     log(f"phase 5 d2 shape: [{V} x {D}], W={d2_words}")
     for name, args in d2_runs.items():
         timed(f"{name} (d2)", *args)
-    # the layout kernel at the scale-22 shapes of both configurations
-    for family, g in (("RMAT-ER", graphs[0]),
-                      ("RMAT-G", rmat.paper_graph("RMAT-G", SCALE_MAIN,
-                                                  seed=0))):
-        log(f"phase 5 layout shape {family}: V={g.num_vertices} "
-            f"E={g.num_directed_edges} padded={pad_bucket(g.num_directed_edges)} "
-            f"max_degree={g.max_degree()}")
-        err, ms, plain_ms, bound, by = timed(f"csr_layout ({family})",
-                                             *layout_runs(g))
-        rows.append({
-            "name": "csr_layout", "shape": family, "route": "cuda",
-            "source": "src/repro_torch/kernels/csrc/csr_layout.cu",
-            "replaces": None,
-            "launches": main_layouts if family == "RMAT-ER" else None,
-            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound, "bound_by": by, "library_ms": None,
-            "launches_by_path": None,
-        })
     # the sort engine's segment-min at b21.oneshot's full-sweep shape
     run, plain, nbytes, nops, M, live, V = mex_runs()
     log(f"phase 5 sorted_mex shape: M={M} pairs ({live} of live vertices), "

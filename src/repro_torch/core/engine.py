@@ -130,8 +130,9 @@ def ell_slab(rows: int, width: int, key_v: torch.Tensor, slot: torch.Tensor,
     return slab[:rows, :width]
 
 
-def _check_ell_width(name: str, ell_width: int, max_degree: int,
-                     max_colors: int) -> None:
+def _ell_width(name: str, ell_width: int, max_degree: int,
+               max_colors: int) -> int:
+    """The width of the slab an ELL bind scatters into, at least 1."""
     # completeness is judged against the TRUE max degree (not the possibly
     # color_bound-capped max_colors): a truncated ELL layout drops forbids
     # in the slab scatter and would silently corrupt colorings
@@ -141,6 +142,7 @@ def _check_ell_width(name: str, ell_width: int, max_degree: int,
             f"{name} engine: ELL width {ell_width} is below the graph's max "
             f"degree {required}; rebuild with Graph.to_device(layout='ell') "
             "(full width)")
+    return max(1, int(ell_width))
 
 
 # --------------------------------------------------------------------------
@@ -229,55 +231,59 @@ class BitmapMexBackend(MexBackend):
 
 
 @dataclasses.dataclass(frozen=True)
-class EllPallasMexBackend(MexBackend):
-    """The CUDA ``firstfit`` kernel (the port of the reference's Pallas
-    ``ell_pallas`` engine), fed by an O(E) scatter of the per-round edge
-    contributions into the graph's ELL (row, slot) geometry: the irregular
-    part is one scatter, the kernel reads a dense [V, D] slab."""
+class _EllSlabBackend(MexBackend):
+    """An engine whose kernel reads a dense ELL slab: each sweep's
+    contributions scatter into the graph's (row, slot) geometry (an O(E)
+    scatter, the irregular part), and :meth:`slab_mex` runs the kernel on
+    the slab's ``[:rows, :width]`` view."""
 
-    name = "ell_pallas"
     needs_ell = True
     needs_color_bound = True
     words: Optional[int] = None
+
+    def slab_mex(self, rows: int, width: int, key_v: torch.Tensor,
+                 slot: torch.Tensor, key_c: torch.Tensor,
+                 words: int) -> torch.Tensor:
+        raise NotImplementedError
 
     def bind(self, *, num_vertices: int, max_colors: int = 0,
              ell_slot=None, ell_width: int = 0, max_degree: int = -1) -> MexFn:
         if ell_slot is None:
             raise ValueError(
-                "ell_pallas engine needs the ELL layout: build the graph "
+                f"{self.name} engine needs the ELL layout: build the graph "
                 "with Graph.to_device(layout='ell')")
-        _check_ell_width(self.name, ell_width, max_degree, max_colors)
-        V = num_vertices
-        D = max(1, int(ell_width))
+        D = _ell_width(self.name, ell_width, max_degree, max_colors)
         words = _resolve_words(self.words, max_colors, self.name)
-
-        def mex(key_v, key_c):
-            return firstfit(ell_slab(V, D, key_v, ell_slot, key_c),
-                            words=words)
-
-        return mex
+        V = num_vertices
+        return lambda key_v, key_c: self.slab_mex(V, D, key_v, ell_slot,
+                                                  key_c, words)
 
     def bind_slab(self, *, capacity: int, max_colors: int = 0,
                   ell_width: int = 0, max_degree: int = -1) -> SlabMexFn:
-        """Frontier bind: the kernel consumes a compacted (capacity, D) ELL
-        slab scattered through the per-round ``slot`` operand."""
-        D = max(1, int(ell_width if ell_width > 0 else max_degree))
-        if max_degree > D:
-            raise ValueError(
-                f"ell_pallas slab bind: width {D} is below the graph's max "
-                f"degree {max_degree}; a frontier row would drop forbids")
+        """Frontier bind: the kernel reads a compacted (capacity, D) slab
+        scattered through the per-round ``slot`` operand."""
+        D = _ell_width(self.name, ell_width if ell_width > 0 else max_degree,
+                       max_degree, max_colors)
         words = _resolve_words(self.words, max_colors, self.name)
         cap = int(capacity)
-
-        def mex(key_v, key_c, slot):
-            return firstfit(ell_slab(cap, D, key_v, slot, key_c),
-                            words=words)
-
-        return mex
+        return lambda key_v, key_c, slot: self.slab_mex(cap, D, key_v, slot,
+                                                        key_c, words)
 
 
 @dataclasses.dataclass(frozen=True)
-class FusedPallasMexBackend(MexBackend):
+class EllPallasMexBackend(_EllSlabBackend):
+    """The CUDA ``firstfit`` kernel (the port of the reference's Pallas
+    ``ell_pallas`` engine) over the slab of neighbor colors."""
+
+    name = "ell_pallas"
+
+    def slab_mex(self, rows, width, key_v, slot, key_c, words):
+        return firstfit(ell_slab(rows, width, key_v, slot, key_c),
+                        words=words)
+
+
+@dataclasses.dataclass(frozen=True)
+class FusedPallasMexBackend(_EllSlabBackend):
     """The CUDA ``round_fused`` kernel (the port of the reference's Pallas
     ``fused_pallas`` engine): the ``firstfit`` bitmask mex PLUS the Alg. 2
     conflict predicate in ONE read of the ELL slab. Contributions scatter
@@ -287,49 +293,12 @@ class FusedPallasMexBackend(MexBackend):
     Bit-identical to ``"bitmap"``/``"ell_pallas"`` by construction."""
 
     name = "fused_pallas"
-    needs_ell = True
-    needs_color_bound = True
-    words: Optional[int] = None
 
-    def bind(self, *, num_vertices: int, max_colors: int = 0,
-             ell_slot=None, ell_width: int = 0, max_degree: int = -1) -> MexFn:
-        if ell_slot is None:
-            raise ValueError(
-                "fused_pallas engine needs the ELL layout: build the graph "
-                "with Graph.to_device(layout='ell')")
-        _check_ell_width(self.name, ell_width, max_degree, max_colors)
-        V = num_vertices
-        D = max(1, int(ell_width))
-        words = _resolve_words(self.words, max_colors, self.name)
-
-        def mex(key_v, key_c):
-            ent = ell_slab(V, D, key_v, ell_slot, key_c | FORBID_BIT)
-            m, _ = round_fused(ent, torch.zeros((V,), dtype=torch.int32,
-                                                device=ent.device),
-                               words=words)
-            return m
-
-        return mex
-
-    def bind_slab(self, *, capacity: int, max_colors: int = 0,
-                  ell_width: int = 0, max_degree: int = -1) -> SlabMexFn:
-        """Frontier bind: the compacted (capacity, D) entry slab scatters
-        through the per-round ``slot`` operand."""
-        D = max(1, int(ell_width if ell_width > 0 else max_degree))
-        if max_degree > D:
-            raise ValueError(
-                f"fused_pallas slab bind: width {D} is below the graph's max "
-                f"degree {max_degree}; a frontier row would drop forbids")
-        words = _resolve_words(self.words, max_colors, self.name)
-        cap = int(capacity)
-
-        def mex(key_v, key_c, slot):
-            ent = ell_slab(cap, D, key_v, slot, key_c | FORBID_BIT)
-            m, _ = round_fused(ent, torch.zeros((cap,), dtype=torch.int32,
-                                                device=ent.device),
-                               words=words)
-            return m
-
+    def slab_mex(self, rows, width, key_v, slot, key_c, words):
+        ent = ell_slab(rows, width, key_v, slot, key_c | FORBID_BIT)
+        mex, _ = round_fused(ent, torch.zeros((rows,), dtype=torch.int32,
+                                              device=ent.device),
+                             words=words)
         return mex
 
 

@@ -36,15 +36,15 @@ Conventions
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Sequence, Tuple, Union
+from typing import NamedTuple, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 
-from ..kernels.csr_layout import csr_layout
 from ..kernels.ops import span
 
 _LAYOUTS = ("edges", "csr", "ell")
+INT32_MAX = 2**31 - 1
 
 DeviceSpec = Union[None, str, torch.device]
 
@@ -80,6 +80,66 @@ def pad_bucket(n: int, *, min_bucket: int = 256) -> int:
     k = (n - 1).bit_length()
     step = 1 << max(k - 3, 0)
     return -(-n // step) * step
+
+
+class CsrLayout(NamedTuple):
+    src: torch.Tensor                 # [P] int32
+    ell_slot: Optional[torch.Tensor]  # [P] int32, or None without a width
+    inc_ptr: Optional[torch.Tensor]   # [V+1] int32, or None when 2E > 2^31-1
+
+
+def _check(row_ptr: torch.Tensor, dst: torch.Tensor, num_directed_edges: int,
+           ell_width: Optional[int]) -> None:
+    if row_ptr.dtype != torch.int64 or row_ptr.dim() != 1 \
+            or row_ptr.numel() < 1 or not row_ptr.is_contiguous():
+        raise ValueError("csr_layout: row_ptr must be a contiguous [V+1] "
+                         f"int64 tensor, got {row_ptr.dtype} "
+                         f"{tuple(row_ptr.shape)}")
+    if dst.dtype != torch.int32 or dst.dim() != 1 or not dst.is_contiguous():
+        raise ValueError("csr_layout: dst must be a contiguous 1-D int32 "
+                         f"tensor, got {dst.dtype} {tuple(dst.shape)}")
+    if dst.device != row_ptr.device:
+        raise ValueError("csr_layout: row_ptr and dst on different devices")
+    if row_ptr.numel() - 1 > INT32_MAX - 1:
+        raise ValueError("csr_layout: vertex ids must fit int32")
+    if not 0 <= int(num_directed_edges) <= dst.numel():
+        raise ValueError(f"csr_layout: {num_directed_edges} edges do not fit "
+                         f"a dst of {dst.numel()}")
+    if ell_width is not None and not 1 <= int(ell_width) <= INT32_MAX:
+        raise ValueError(f"csr_layout: ell_width must be >= 1, got "
+                         f"{ell_width}")
+
+
+def csr_layout(row_ptr: torch.Tensor, dst: torch.Tensor,
+               num_directed_edges: int,
+               ell_width: Optional[int] = None) -> CsrLayout:
+    """Expand a CSR into the device layout on its device: returns ``(src,
+    ell_slot, inc_ptr)`` and writes V into ``dst[num_directed_edges:]``.
+
+    row_ptr: [V+1] int64; dst: [P] int32 on the same device, its first
+    ``num_directed_edges`` entries the CSR's ``col_idx``; ell_width: the
+    slab width (None: no slot map). ``src`` is each directed edge's row (V
+    for padding), ``ell_slot`` its position in its row cut at the width
+    (which is also the padding's slot), ``inc_ptr`` ``row_ptr`` as int32,
+    None when the edge count does not fit int32. The reference builds this
+    layout on the host in numpy (``src/repro/core/graph.py::
+    Graph.to_device``)."""
+    _check(row_ptr, dst, num_directed_edges, ell_width)
+    V, e, P = row_ptr.numel() - 1, int(num_directed_edges), dst.numel()
+    dev = row_ptr.device
+    src = torch.full((P,), V, dtype=torch.int32, device=dev)
+    src[:e] = torch.repeat_interleave(
+        torch.arange(V, dtype=torch.int32, device=dev),
+        row_ptr[1:] - row_ptr[:-1], output_size=e)
+    slot = None
+    if ell_width is not None:
+        slot = torch.full((P,), int(ell_width), dtype=torch.int32, device=dev)
+        pos = torch.arange(e, dtype=torch.int64, device=dev) \
+            - row_ptr[src[:e].long()]
+        slot[:e] = pos.clamp(max=int(ell_width))
+    dst[e:] = V
+    inc = row_ptr.to(torch.int32) if e <= INT32_MAX else None
+    return CsrLayout(src, slot, inc)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -288,7 +348,7 @@ class Graph:
                   device: DeviceSpec = None) -> "DeviceGraph":
         """Move the graph onto ``device`` (``None`` = the card) in the
         requested layout(s): the CSR is copied as it is, and expanded on
-        the device into the rest (``repro_torch.kernels.csr_layout``).
+        the device into the rest (:func:`csr_layout`).
 
         layout: ``"edges"`` (directed edge list — always present),
             ``"csr"`` (adds ``row_ptr``/``col_idx``), ``"ell"`` (adds the

@@ -20,7 +20,9 @@ import subprocess
 import tempfile
 import threading
 from pathlib import Path
-from typing import List, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
+
+import torch
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 _REPO = Path(__file__).resolve().parents[3]
@@ -30,19 +32,22 @@ ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
               "-Xptxas=-v")
 
-_P = ctypes.c_void_p
-_I = ctypes.c_int
-_L = ctypes.c_longlong
-# C entry points: (argtypes, restype). Each launcher returns cudaGetLastError().
-_SIGNATURES = {
-    "repro_firstfit": ((_P, _L, _I, _I, _I, _P, _P), _I),
-    "repro_round_fused": ((_P, _L, _P, _I, _I, _I, _P, _P, _P), _I),
-    "repro_conflict_mask": ((_P, _P, _P, _P, _L, _P, _P), _I),
-    "repro_csr_layout": ((_P, _I, _L, _L, _I, _P, _P, _P, _P, _P), _I),
-    "repro_sorted_mex": ((_P, _P, _L, _I, _P, _P), _I),
-    "repro_kernel_attributes": ((_I, _I, _I, _P), _I),
-    "repro_error_string": ((_I,), ctypes.c_char_p),
+# The C entries that are no kernel: (argtypes, restype). The kernels' come
+# from repro_torch.kernels.ops.KERNELS.
+UTILITIES = {
+    "repro_kernel_attributes": ((ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                                 ctypes.c_void_p), ctypes.c_int),
+    "repro_error_string": ((ctypes.c_int,), ctypes.c_char_p),
 }
+
+
+def entries() -> Dict[str, Tuple[tuple, type]]:
+    """Every C entry the library exports: ``repro_<name>`` of each kernel
+    of ``KERNELS`` (returning its launch's ``cudaError_t``), then
+    :data:`UTILITIES`."""
+    from .ops import KERNELS
+    return {**{f"repro_{k.name}": (k.argtypes, ctypes.c_int)
+               for k in KERNELS}, **UTILITIES}
 
 
 def sources() -> List[Path]:
@@ -124,7 +129,7 @@ def load() -> ctypes.CDLL:
         if _LIB is None:
             path, _ = build()
             lib = ctypes.CDLL(str(path))
-            for name, (argtypes, restype) in _SIGNATURES.items():
+            for name, (argtypes, restype) in entries().items():
                 fn = getattr(lib, name)
                 fn.argtypes = argtypes
                 fn.restype = restype
@@ -138,3 +143,16 @@ def check(lib: ctypes.CDLL, rc: int, kernel: str) -> None:
     if rc != 0:
         msg = lib.repro_error_string(rc).decode()
         raise RuntimeError(f"{kernel} kernel launch failed: CUDA error {rc} ({msg})")
+
+
+def launch(name: str, device: torch.device, *args) -> None:
+    """Launch the kernel ``name`` on ``device``: call ``repro_<name>(*args,
+    stream)`` on the device's current stream, raise if it returned a CUDA
+    error, and count the launch (``ops.launch_counts()``)."""
+    from . import ops
+    lib = load()
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        rc = getattr(lib, f"repro_{name}")(*args, stream)
+    check(lib, rc, name)
+    ops._LAUNCHES[name] += 1

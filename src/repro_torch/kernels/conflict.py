@@ -10,7 +10,6 @@ runs on the main path: ``engine.speculation_conflicts`` and
   kernel ``csrc/conflict.cu`` (one thread per edge, grid-stride) or raise;
   CPU tensors take :func:`conflict_mask_plain`. No fallback between them.
 * :func:`conflict_mask_plain` — the same function in plain PyTorch.
-* ``conflict_mask.launches`` — how many times the wrapper launched the kernel.
 """
 from __future__ import annotations
 
@@ -50,14 +49,6 @@ def conflict_mask(colors_src: torch.Tensor, colors_dst: torch.Tensor,
         out = torch.empty((E,), dtype=torch.int32, device=colors_src.device)
         if E == 0:
             return scope.result(out)
-        lib = _build.load()
-        with torch.cuda.device(colors_src.device):
-            stream = torch.cuda.current_stream(colors_src.device).cuda_stream
-            rc = lib.repro_conflict_mask(*(a.data_ptr() for a in args), E,
-                                         out.data_ptr(), stream)
-        _build.check(lib, rc, "conflict_mask")
-        conflict_mask.launches += 1
+        _build.launch("conflict_mask", colors_src.device,
+                      *(a.data_ptr() for a in args), E, out.data_ptr())
         return scope.result(out)
-
-
-conflict_mask.launches = 0

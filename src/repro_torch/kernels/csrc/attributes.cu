@@ -1,7 +1,8 @@
 // repro_kernel_attributes: cudaFuncGetAttributes of the kernel a launcher
 // picks, for the static analyzer's budget pass (repro_torch.analysis.budgets)
-// and for chip_smoke.py. kernel: 0 firstfit, 1 round_fused, 2 conflict_mask
-// (the order of repro_torch.kernels.ops.KERNELS), 3 sorted_mex. out[6]:
+// and for chip_smoke.py. kernel: the kernel's position in
+// repro_torch.kernels.ops.KERNELS (0 firstfit, 1 round_fused, 2 conflict_mask,
+// 3 sorted_mex). out[6]:
 // registers per thread, static shared bytes, local (spill) bytes per thread,
 // the most threads a block of it may have, the block size the launcher asks
 // for, and the card's opt-in shared memory per block.

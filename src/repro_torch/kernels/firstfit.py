@@ -14,7 +14,6 @@ colors ``< 0`` or ``>= 32·W`` dropped) and returns the lowest clear bit.
   and design) or raises; a CPU tensor takes :func:`firstfit_plain`. There
   is no fallback between the two.
 * :func:`firstfit_plain` — the same function in plain PyTorch.
-* ``firstfit.launches`` — how many times the wrapper launched the kernel.
 * :func:`smem_estimate` — the least shared memory a block of the kernel
   needs at ``W`` words; :func:`check_slab` and the static analyzer's
   budget pass (``repro_torch.analysis.budgets``) both read it.
@@ -97,15 +96,7 @@ def firstfit(nbr_colors: torch.Tensor, *, words: int = 16) -> torch.Tensor:
         out = torch.empty((V,), dtype=torch.int32, device=nbr_colors.device)
         if V == 0:
             return scope.result(out)
-        lib = _build.load()
-        with torch.cuda.device(nbr_colors.device):
-            stream = torch.cuda.current_stream(nbr_colors.device).cuda_stream
-            rc = lib.repro_firstfit(nbr_colors.data_ptr(),
-                                    row_stride(nbr_colors), V, D, int(words),
-                                    out.data_ptr(), stream)
-        _build.check(lib, rc, "firstfit")
-        firstfit.launches += 1
+        _build.launch("firstfit", nbr_colors.device, nbr_colors.data_ptr(),
+                      row_stride(nbr_colors), V, D, int(words),
+                      out.data_ptr())
         return scope.result(out)
-
-
-firstfit.launches = 0

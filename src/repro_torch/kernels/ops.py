@@ -2,13 +2,16 @@
 
 The coloring algorithms reach the kernels only through the engine registry
 (``repro_torch.core.engine``: ``engine="ell_pallas"`` binds ``firstfit``,
-``engine="fused_pallas"`` binds ``round_fused``) and the Alg. 2 phase-2
-conflict pass (``conflict_mask``). What lives here: the standalone slab helpers :func:`ell_gather_colors`
-and :func:`ell_mex` (serial-style mex over an ELL adjacency), :data:`KERNELS`, one
-entry per hand-written kernel with the TPU kernel it replaces, the launch
-counters, :func:`kernel_attributes` (what the CUDA runtime reports for a
-kernel), and the hooks through which a running program reports to the
-static analyzer's recorder (``repro_torch.analysis.record``):
+``engine="fused_pallas"`` binds ``round_fused``, ``engine="sort"`` ends
+in ``sorted_mex``) and the Alg. 2 phase-2 conflict pass
+(``conflict_mask``). What lives here: the standalone slab helpers
+:func:`ell_gather_colors` and :func:`ell_mex` (serial-style mex over an ELL
+adjacency), :data:`KERNELS`, one entry per hand-written kernel (its CUDA
+source, the TPU kernel it replaces, its C entry's argtypes), the launch
+counters that :func:`launch_counts` reads, :func:`kernel_attributes` (what
+the CUDA runtime reports for a kernel), and the hooks through which a
+running program reports to the static analyzer's recorder
+(``repro_torch.analysis.record``):
 
 * :func:`kernel_scope` — every wrapper runs its launch (or, for a CPU
   tensor, its plain version) inside one, so the recorder sees one kernel
@@ -66,39 +69,48 @@ from typing import Dict, List, NamedTuple, Optional, Tuple, Union
 import torch
 from torch.autograd import profiler as _autograd_profiler
 
-from .conflict import conflict_mask
 from .firstfit import firstfit
-from .round_fused import round_fused
+
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 
 
 class Kernel(NamedTuple):
-    name: str
-    wrapper: object
-    source: str    # the CUDA source, relative to the repository root
-    replaces: str  # the pl.pallas_call of the TPU kernel it ports
+    name: str                # its C entry is repro_<name>
+    source: str              # the CUDA source, relative to the repository root
+    replaces: Optional[str]  # the pl.pallas_call of the TPU kernel it ports
+    argtypes: tuple          # of repro_<name>, which returns a cudaError_t
 
 
+# One entry per hand-written kernel. _build binds the C entries from it,
+# the launches are counted by its names, and a kernel's position is its id
+# in csrc/attributes.cu.
 KERNELS = (
-    Kernel("firstfit", firstfit,
-           "src/repro_torch/kernels/csrc/firstfit.cu",
-           "src/repro/kernels/firstfit.py:117"),
-    Kernel("round_fused", round_fused,
-           "src/repro_torch/kernels/csrc/round_fused.cu",
-           "src/repro/kernels/round_fused.py:181"),
-    Kernel("conflict_mask", conflict_mask,
-           "src/repro_torch/kernels/csrc/conflict.cu",
-           "src/repro/kernels/conflict.py:57"),
+    Kernel("firstfit", "src/repro_torch/kernels/csrc/firstfit.cu",
+           "src/repro/kernels/firstfit.py:117",
+           (_P, _L, _I, _I, _I, _P, _P)),
+    Kernel("round_fused", "src/repro_torch/kernels/csrc/round_fused.cu",
+           "src/repro/kernels/round_fused.py:181",
+           (_P, _L, _P, _I, _I, _I, _P, _P, _P)),
+    Kernel("conflict_mask", "src/repro_torch/kernels/csrc/conflict.cu",
+           "src/repro/kernels/conflict.py:57",
+           (_P, _P, _P, _P, _L, _P, _P)),
+    # the sort engine's segment-min; the reference takes XLA's segment_min
+    Kernel("sorted_mex", "src/repro_torch/kernels/csrc/sorted_mex.cu", None,
+           (_P, _P, _L, _I, _P, _P)),
 )
+
+# launches on the card by kernel name; _build.launch counts them
+_LAUNCHES = {k.name: 0 for k in KERNELS}
 
 
 def launch_counts() -> Dict[str, int]:
     """Kernel launches so far, by kernel name."""
-    return {k.name: k.wrapper.launches for k in KERNELS}
+    return dict(_LAUNCHES)
 
 
 def reset_launch_counts() -> None:
-    for k in KERNELS:
-        k.wrapper.launches = 0
+    for name in _LAUNCHES:
+        _LAUNCHES[name] = 0
 
 
 # the fields repro_kernel_attributes fills, in order
@@ -109,13 +121,11 @@ ATTRIBUTE_FIELDS = ("registers", "static_smem_bytes", "local_bytes",
 def kernel_attributes(name: str, *, words: int = 1, width: int = 1) -> dict:
     """``cudaFuncGetAttributes`` of the kernel variant the launcher of
     ``name`` picks for a ``words``-word bitset over rows of ``width``
-    (the bulk-copy variant; the conflict kernel has one), beside the block
+    (the bulk-copy variant; the other kernels have one), beside the block
     size the launcher asks for and the card's opt-in shared memory per
-    block. Needs the card. ``sorted_mex``, which ports no TPU kernel, is
-    asked for after the kernels of :data:`KERNELS`."""
+    block. Needs the card."""
     from . import _build
     ids = {k.name: i for i, k in enumerate(KERNELS)}
-    ids["sorted_mex"] = len(KERNELS)
     if name not in ids:
         raise ValueError(f"unknown kernel {name!r}; choose from {sorted(ids)}")
     lib = _build.load()
@@ -162,7 +172,7 @@ def kernel_scope(name: str, inputs, **info):
     ``inputs`` its tensor operands, ``info`` its geometry (rows, width,
     words, smem). The body returns ``scope.result(out)``. The launch, host
     side, is the span ``kernel.<name>``."""
-    with span(_KERNEL_SPANS.get(name) or f"kernel.{name}"):
+    with span(f"kernel.{name}"):
         rec = active_recorder()
         if rec is None:
             yield _UNRECORDED
@@ -304,7 +314,6 @@ class SpanLog:
 
 _SPANS = SpanLog()
 _REQUEST_IDS = itertools.count(1)
-_KERNEL_SPANS = {k.name: f"kernel.{k.name}" for k in KERNELS}
 
 
 def profiler_recording() -> bool:

@@ -16,7 +16,6 @@ Entries with neither bit are inert; color 0 is always forbidden.
   CPU tensor takes :func:`round_fused_plain`. There is no fallback between
   the two.
 * :func:`round_fused_plain` — the same function in plain PyTorch.
-* ``round_fused.launches`` — how many times the wrapper launched the kernel.
 * :func:`smem_estimate` — ``firstfit``'s: both kernels share one launcher
   (``csrc/bitset.cuh``), so their per-block shared memory is the same.
 """
@@ -102,19 +101,10 @@ def round_fused(entries: torch.Tensor, own_colors: torch.Tensor, *,
         conf = torch.empty((V,), dtype=torch.int32, device=entries.device)
         if V == 0:
             return scope.result((mex, conf))
-        lib = _build.load()
-        with torch.cuda.device(entries.device):
-            stream = torch.cuda.current_stream(entries.device).cuda_stream
-            rc = lib.repro_round_fused(entries.data_ptr(),
-                                       row_stride(entries), own.data_ptr(),
-                                       V, D, int(words), mex.data_ptr(),
-                                       conf.data_ptr(), stream)
-        _build.check(lib, rc, "round_fused")
-        round_fused.launches += 1
+        _build.launch("round_fused", entries.device, entries.data_ptr(),
+                      row_stride(entries), own.data_ptr(), V, D, int(words),
+                      mex.data_ptr(), conf.data_ptr())
         return scope.result((mex, conf))
-
-
-round_fused.launches = 0
 
 
 def tile_conflict_counts(conflict: torch.Tensor,

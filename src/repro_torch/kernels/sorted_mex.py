@@ -15,7 +15,6 @@ its source, ``csrc/sorted_mex.cu``.
   them.
 * :func:`sorted_mex_plain` — the same function in plain PyTorch (a gap test
   and a ``scatter_reduce_`` amin).
-* ``sorted_mex.launches`` — how many times the wrapper launched the kernel.
 """
 from __future__ import annotations
 
@@ -81,14 +80,6 @@ def sorted_mex(vertex: torch.Tensor, color: torch.Tensor,
                          device=vertex.device)
         if M == 0:
             return scope.result(mex)
-        lib = _build.load()
-        with torch.cuda.device(vertex.device):
-            stream = torch.cuda.current_stream(vertex.device).cuda_stream
-            rc = lib.repro_sorted_mex(vertex.data_ptr(), color.data_ptr(), M,
-                                      V, mex.data_ptr(), stream)
-        _build.check(lib, rc, "sorted_mex")
-        sorted_mex.launches += 1
+        _build.launch("sorted_mex", vertex.device, vertex.data_ptr(),
+                      color.data_ptr(), M, V, mex.data_ptr())
         return scope.result(mex)
-
-
-sorted_mex.launches = 0

@@ -1,17 +1,16 @@
-"""repro_torch.kernels.csr_layout on the CPU: the plain version (what
-``Graph.to_device`` runs for a CPU tensor) against a numpy oracle that
-walks the rows one by one, on R-MAT graphs and the layout's edge cases
-(isolated vertices, runs of empty rows, an empty last row, a row longer
-than the kernel's 4,096-edge tile, no vertex, no edge), padded or not,
-with no ELL width, the max degree, or a width below it. Plus the wrapper's
-routing and checks. The CUDA kernel is held against the plain version on
-a card (tests/test_torch_cuda.py, chip_smoke.py)."""
+"""repro_torch.core.graph.csr_layout on the CPU (what ``Graph.to_device``
+runs on every device) against a numpy oracle that walks the rows one by
+one, on R-MAT graphs and the layout's edge cases (isolated vertices, runs
+of empty rows, an empty last row, a row of 10,000 edges, no vertex, no
+edge), padded or not, with no ELL width, the max degree, or a width below
+it. Plus its input checks. On the card, ``tests/test_torch_cuda.py`` holds
+a plan's layout to the CPU's."""
 import numpy as np
 import pytest
 import torch
 
 import repro_torch.core as T
-from repro_torch.kernels import csr_layout, csr_layout_plain
+from repro_torch.core.graph import csr_layout
 
 INT32_MAX = np.iinfo(np.int32).max
 
@@ -68,7 +67,7 @@ def test_csr_layout_plain_matches_numpy_oracle(graph, pad, width):
     w = _width(row_ptr, width)
     dst = torch.full((num_padded,), -1, dtype=torch.int32)
     dst[:e] = torch.arange(e, dtype=torch.int32)  # stands in for col_idx
-    out = csr_layout_plain(torch.from_numpy(row_ptr), dst, e, w)
+    out = csr_layout(torch.from_numpy(row_ptr), dst, e, w)
     src, slot, tail, inc = _oracle(row_ptr, num_padded, w)
     assert out.src.dtype == torch.int32
     np.testing.assert_array_equal(out.src.numpy(), src)
@@ -81,17 +80,6 @@ def test_csr_layout_plain_matches_numpy_oracle(graph, pad, width):
     np.testing.assert_array_equal(dst[e:].numpy(), tail)
     assert out.inc_ptr.dtype == torch.int32
     np.testing.assert_array_equal(out.inc_ptr.numpy(), inc)
-
-
-def test_cpu_tensors_take_the_plain_version_and_count_no_launch():
-    row_ptr = torch.from_numpy(_row_ptr("isolated"))
-    e = int(row_ptr[-1])
-    before = csr_layout.launches
-    a = csr_layout(row_ptr, torch.zeros(e + 3, dtype=torch.int32), e, 2)
-    b = csr_layout_plain(row_ptr, torch.zeros(e + 3, dtype=torch.int32), e, 2)
-    assert csr_layout.launches == before
-    for x, y in zip(a, b):
-        assert torch.equal(x, y)
 
 
 def test_csr_layout_rejects_what_the_kernel_does_not_take():

@@ -136,8 +136,8 @@ def _layout_graphs(graph, graphs):
 
 @pytest.mark.parametrize("case", LAYOUT_CASES, ids=_layout_id)
 def test_device_layout_matches_reference(case, graphs):
-    """The port's ``to_device`` (the CSR expanded by ``csr_layout``'s plain
-    version on the CPU) equals the reference's numpy layout, field by
+    """The port's ``to_device`` (the CSR expanded by ``csr_layout`` on the
+    CPU) equals the reference's numpy layout, field by
     field: padded or not, each layout, and an ELL width below the max
     degree (rows cut into the sink column)."""
     graph, pad, layout, narrow = case

@@ -7,6 +7,7 @@ the wrappers' routing and checks, and the build's wiring. Exact equality
 throughout: the functions are integer-valued. The CUDA kernels themselves
 are held against the plain versions on a card (tests/test_torch_cuda.py,
 chip_smoke.py)."""
+import re
 from pathlib import Path
 
 import numpy as np
@@ -23,7 +24,7 @@ from repro_torch.kernels import (COLOR_MASK, CONFLICT_BIT, FORBID_BIT,
                                  KERNELS, conflict_mask, conflict_mask_plain,
                                  firstfit, firstfit_plain,
                                  launch_counts, pack_entries, round_fused,
-                                 round_fused_plain)
+                                 round_fused_plain, sorted_mex)
 from repro_torch.kernels import _build
 
 REPO = Path(__file__).resolve().parents[1]
@@ -156,6 +157,8 @@ def test_cpu_tensors_never_count_launches():
     firstfit(x, words=1)
     round_fused(x, torch.zeros(4, dtype=torch.int32), words=1)
     conflict_mask(*(torch.zeros(5, dtype=torch.int32),) * 4)
+    sorted_mex(torch.tensor([0, 0, 2], dtype=torch.int32),
+               torch.tensor([0, 1, 0], dtype=torch.int32), 2)
     assert launch_counts() == before
 
 
@@ -177,16 +180,39 @@ def test_wrappers_reject_what_the_kernels_do_not_take():
 
 
 def test_kernel_registry_names_sources_and_pallas_calls():
-    """Every kernel names its CUDA source and the reference line that holds
-    the ``pl.pallas_call`` it replaces."""
+    """Every kernel names its CUDA source and, where it ports one, the
+    reference line that holds the ``pl.pallas_call`` it replaces."""
     assert [k.name for k in KERNELS] == ["firstfit", "round_fused",
-                                         "conflict_mask"]
+                                         "conflict_mask", "sorted_mex"]
     for k in KERNELS:
         assert (REPO / k.source).exists(), k.source
+        if k.replaces is None:
+            continue
         path, line = k.replaces.split(":")
         text = (REPO / path).read_text().splitlines()[int(line) - 1]
         assert "pl.pallas_call" in text, (k.name, text)
-        assert k.wrapper.launches >= 0
+
+
+def test_the_kernel_table_drives_the_build_the_ids_and_the_counters():
+    """``KERNELS`` is the one list of hand kernels: ``_build`` binds
+    exactly their C entries besides its utilities, each defined in the
+    kernel's own source; ``attributes.cu`` dispatches id ``i`` to the
+    kernel at position ``i``; ``launch_counts()`` has exactly their
+    names."""
+    entries = _build.entries()
+    assert set(entries) - set(_build.UTILITIES) == \
+        {"repro_" + k.name for k in KERNELS}
+    attributes = (REPO / "src/repro_torch/kernels/csrc/attributes.cu"
+                  ).read_text()
+    dispatch = dict(re.findall(r"kernel == (\d+)\)\s*err = (\w+)_attributes",
+                               attributes))
+    assert dispatch == {str(i): Path(k.source).stem
+                        for i, k in enumerate(KERNELS)}
+    for k in KERNELS:
+        source = (REPO / k.source).read_text()
+        assert f'extern "C" int repro_{k.name}(' in source, k.name
+        assert f"{Path(k.source).stem}_attributes(" in source, k.name
+    assert list(launch_counts()) == [k.name for k in KERNELS]
 
 
 def test_build_targets_hopper_from_the_sources():

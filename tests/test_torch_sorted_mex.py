@@ -13,7 +13,7 @@ import torch
 
 from repro.core import mex as RM
 from repro_torch.core import mex as TM
-from repro_torch.kernels import sorted_mex, sorted_mex_plain
+from repro_torch.kernels import launch_counts, sorted_mex, sorted_mex_plain
 
 INT32_MAX = np.iinfo(np.int32).max
 V = 64
@@ -91,21 +91,20 @@ def test_sorted_mex_plain_matches_reference_and_python(case):
                            torch.from_numpy(c[order]), V)
     assert got.dtype == torch.int32 and got.shape == (V,)
     np.testing.assert_array_equal(got.numpy(), want)
-    before = sorted_mex.launches
+    before = launch_counts()["sorted_mex"]
     through = TM.segment_mex(torch.from_numpy(v), torch.from_numpy(c), V)
-    assert sorted_mex.launches == before
+    assert launch_counts()["sorted_mex"] == before
     np.testing.assert_array_equal(through.numpy(), want)
 
 
-def test_cpu_tensors_take_the_plain_version_and_count_no_launch(
-        monkeypatch):
+def test_cpu_tensors_take_the_plain_version_and_count_no_launch():
     v, c = CASES["sink"]
     order = np.lexsort((c, v))
     vs, cs = torch.from_numpy(v[order]), torch.from_numpy(c[order])
-    monkeypatch.setattr(sorted_mex, "launches", 0)
+    before = launch_counts()["sorted_mex"]
     got = sorted_mex(vs, cs, V)
     TM.segment_mex(torch.from_numpy(v), torch.from_numpy(c), V)
-    assert sorted_mex.launches == 0
+    assert launch_counts()["sorted_mex"] == before
     assert torch.equal(got, sorted_mex_plain(vs, cs, V))
 
 
