@@ -32,7 +32,11 @@ other phases colored.
               plain version's ms; and ``sorted_mex`` (the ``sort``
               engine's segment-min, which replaces no TPU kernel) at
               ``b21.oneshot``'s full-sweep shape, its launches those of
-              phase 4's ``sort`` run;
+              phase 4's ``sort`` run; and ``frontier_expand`` (the
+              frontier's row-owner flood, which replaces no TPU kernel)
+              at the ``g22.oneshot`` and ``b21.oneshot`` slab shapes
+              (graphs made on the card by ``portbench/gen.py``), its
+              plain version the ``cummax`` path;
 6. models   — distance-2 coloring of RMAT-ER scale 18 (G^2: Delta 617, 20
               bitset words, the kernels' wide path) through a
               ``compile_plan`` with ``model="d2"`` and ``fused_pallas``,
@@ -317,6 +321,24 @@ def device_ms(fn, launches: int, runs: int = 5) -> float:
     return statistics.median(times)
 
 
+def graph_ms(fn, launches: int = 50, runs: int = 5) -> float:
+    """Device ms per call of fn with the host out of the way: fn captured
+    once into a CUDA graph, then ``launches`` replays back to back between
+    CUDA events, the median over ``runs``. For a kernel whose wrapper takes
+    longer on the host than the kernel on the card, where :func:`device_ms`
+    would time the host."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # warm: the allocator's blocks exist
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    return device_ms(graph.replay, launches, runs)
+
+
 def card_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -531,9 +553,53 @@ def mex_runs(seed=21):
             8 * live + 4 * V, 4 * v_s.numel(), v_s.numel(), live, V)
 
 
-def timed(name, run, plain, nbytes, nops):
+def expand_runs(family, scale, seed=22):
+    """frontier_expand at a one-shot cell's slab shape, as a closure (run,
+    plain, bytes, operations, shape): an R-MAT graph of ``family`` at
+    ``scale`` made on the card (``portbench/gen.py``, edge factor 8), the
+    plan's capacities (``frontier_capacities`` of V, the padded edge count
+    and the max degree), an active set of random vertices about 0.95 cap_v
+    large, and the rows ``compact_frontier`` gives them. Bytes: vert, vdeg
+    and starts read once, inc_ptr once for each row with edges, the live
+    targets once, and the four int32 fields written once."""
+    import torch
+    from portbench.gen import rmat_csr
+    from repro_torch.core.frontier import compact_frontier, frontier_capacities
+    from repro_torch.core.graph import pad_bucket
+    from repro_torch.kernels import frontier_expand, frontier_expand_plain
+    params = {"RMAT-G": (0.45, 0.15, 0.15, 0.25),
+              "RMAT-B": (0.55, 0.15, 0.15, 0.15)}[family]
+    dev = torch.device("cuda")
+    gen = torch.Generator(dev).manual_seed(seed)
+    csr = rmat_csr(scale, 8, params, gen, dev)
+    V, e2 = csr.num_vertices, csr.num_directed_edges
+    E = pad_bucket(e2)
+    cap_v, cap_e = frontier_capacities(V, E, csr.max_degree())
+    inc_ptr = torch.from_numpy(csr.row_ptr).to(dev, torch.int32)[None]
+    dst = torch.full((1, E), V, dtype=torch.int32, device=dev)
+    dst[0, :e2] = torch.from_numpy(csr.col_idx).to(dev)
+    active = torch.rand((1, V), generator=gen, device=dev) < 0.95 * cap_v / V
+    slab = compact_frontier(active, inc_ptr, dst, cap_v, cap_e)
+    deg = inc_ptr[:, 1:] - inc_ptr[:, :-1]
+    vdeg = torch.cat([deg, deg.new_zeros((1, 1))], 1).gather(
+        1, torch.clamp(slab.vert, max=V).long())
+    starts = torch.cumsum(vdeg, 1, dtype=torch.int32) - vdeg
+    args = (slab.vert, vdeg, starts, slab.ne, inc_ptr, dst, cap_e)
+    rows = int((vdeg > 0).sum())
+    live = min(int(vdeg.sum()), int(slab.ne[0]), cap_e)
+    nbytes = 12 * cap_v + 4 * rows + 4 * live + 16 * cap_e
+    shape = (f"V={V} E={E} max_degree={csr.max_degree()} cap_v={cap_v} "
+             f"cap_e={cap_e} nv={int(slab.nv[0])} ne={int(slab.ne[0])} "
+             f"rows with edges {rows}, live entries {live}")
+    return (lambda: frontier_expand(*args),
+            lambda: frontier_expand_plain(*args, V),
+            nbytes, 4 * cap_e, shape)
+
+
+def timed(name, run, plain, nbytes, nops, graph=False):
     """A kernel against its plain version (exact), then its device ms per
-    launch (50 back to back, median of 5), its bound (the larger of bytes
+    launch (50 back to back, median of 5; with ``graph``, replays of a CUDA
+    graph of one launch, :func:`graph_ms`), its bound (the larger of bytes
     at 3.35 TB/s and operations at the CUDA-core rate) and the plain
     version's ms."""
     got, want = run(), plain()
@@ -542,7 +608,7 @@ def timed(name, run, plain, nbytes, nops):
     else:
         err = max_abs_err(got, want)
     assert err == 0, f"{name} disagrees with its plain version"
-    ms = device_ms(run, 50)
+    ms = graph_ms(run) if graph else device_ms(run, 50)
     plain_ms = device_ms(plain, 3, runs=3)
     bytes_ms = 1e3 * nbytes / HBM_BYTES_PER_S
     ops_ms = 1e3 * nops / INT_OPS_PER_S
@@ -2882,7 +2948,7 @@ def main(argv=None) -> int:
 
     rows = []
     for k in KERNELS:
-        if k.name not in runs:  # sorted_mex: at b21's shape, below
+        if k.name not in runs:  # sorted_mex, frontier_expand: below
             continue
         err, ms, plain_ms, bound, by = timed(k.name, *runs[k.name])
         launches = main_counts[k.name]
@@ -2923,6 +2989,25 @@ def main(argv=None) -> int:
         "bound_ms": bound, "bound_by": by, "library_ms": None,
         "launches_by_path": None,
     })
+    # the frontier's row-owner flood at the g22 and b21 cells' slab shapes
+    for cell, family, scale in (("g22", "RMAT-G", 22), ("b21", "RMAT-B", 21)):
+        run, plain, nbytes, nops, expand_shape = expand_runs(family, scale)
+        log(f"phase 5 frontier_expand {cell} slab: {expand_shape}")
+        log(f"  frontier_expand wrapper calls back to back: "
+            f"{device_ms(run, 50):.4f} ms a call (the host's launch path)")
+        err, ms, plain_ms, bound, by = timed(
+            f"frontier_expand ({cell} slab)", run, plain, nbytes, nops,
+            graph=True)
+        rows.append({
+            "name": "frontier_expand", "shape": f"{cell} slab",
+            "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/frontier_expand.cu",
+            "replaces": None, "launches": main_counts["frontier_expand"],
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound, "bound_by": by, "library_ms": None,
+            "launches_by_path": {p: c["frontier_expand"]
+                                 for p, c in by_path.items()},
+        })
     log("phase 5 timings: ok")
 
     print(json.dumps({"kernels": rows}), flush=True)

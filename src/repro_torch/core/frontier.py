@@ -8,8 +8,9 @@ their incident constraint edges into fixed-capacity slabs:
 * :func:`frontier_capacities` — the static bucket ladder: slab capacities
   derived from the graph envelope via :func:`repro_torch.core.graph.pad_bucket`.
 * :func:`compact_frontier` — sort-free cumsum-scatter compaction of the
-  active vertices AND their incident edges into a :class:`FrontierSlab`,
-  one CSR gather through the DeviceGraph's ``inc_ptr``.
+  active vertices AND their incident edges into a :class:`FrontierSlab`:
+  the ``frontier_expand`` kernel expands the slab rows into their edges
+  through the DeviceGraph's ``inc_ptr``.
 * :func:`frontier_sweep` — the speculation inner loop over the slab only,
   bit-identical to :func:`repro_torch.core.engine.fixpoint_sweep` on the
   full edge list.
@@ -33,6 +34,7 @@ from typing import NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from ..kernels.frontier_expand import frontier_expand
 from ..kernels.ops import host_read, report_state
 from .engine import SlabMexFn, conflict_pending
 from .graph import batch_index, pad_bucket
@@ -125,9 +127,10 @@ def compact_frontier(active: torch.Tensor, inc_ptr: torch.Tensor,
                      dst: torch.Tensor, cap_v: int, cap_e: int, *,
                      dst_pad: Optional[int] = None) -> FrontierSlab:
     """Compact the active vertices and their incident CSR rows into a
-    :class:`FrontierSlab` — no sort: a rank cumsum places vertices, a
-    degree cumsum + scatter + running max assigns edges to rows, and one
-    gather through ``inc_ptr`` pulls the edge targets.
+    :class:`FrontierSlab` — no sort: a rank cumsum places vertices, and
+    the degree cumsum is the slab's row pointer, from which
+    :func:`repro_torch.kernels.frontier_expand` assigns edges to rows and
+    pulls their targets through ``inc_ptr``.
 
     ``active`` [V] bool; ``inc_ptr`` [V+1] int32 row pointers into ``dst``
     (rows contiguous); padded slab edges point at ``dst_pad`` (default V;
@@ -147,8 +150,6 @@ def compact_frontier(active: torch.Tensor, inc_ptr: torch.Tensor,
                                 cap_v, cap_e, dst_pad=dst_pad)
         return FrontierSlab(*(x[0] for x in slab))
     B, V = active.shape
-    E = dst.shape[1]
-    fill = V if dst_pad is None else int(dst_pad)
     dev = active.device
     deg = inc_ptr[:, 1:] - inc_ptr[:, :-1]
     nv, ne = frontier_counts(active, inc_ptr)
@@ -163,37 +164,16 @@ def compact_frontier(active: torch.Tensor, inc_ptr: torch.Tensor,
     vert.scatter_(1, row.long(), torch.arange(V, **i32).expand(B, V))
     vert = vert[:, :cap_v]
 
-    # edges: exclusive cumsum of slab-row degrees gives each row's start;
-    # scatter row ids at the starts, a running max floods them rightwards
+    # edges: the exclusive cumsum of slab-row degrees is the slab's row
+    # pointer; frontier_expand gives each slab entry its row, slot, source
+    # and target
     degp = torch.cat([deg, deg.new_zeros((B, 1))], 1)
     vdeg = degp.gather(1, torch.clamp(vert, max=V).long())  # empty rows: 0
     starts = torch.cumsum(vdeg, 1, dtype=torch.int32) - vdeg
-    at = torch.where((vdeg > 0) & (starts < cap_e), starts,
-                     torch.full_like(starts, cap_e))
-    owner = torch.zeros((B, cap_e + 1), **i32)
-    owner.scatter_reduce_(1, at.long(),
-                          torch.arange(cap_v, **i32).expand(B, cap_v),
-                          "amax")
-    owner = torch.cummax(owner[:, :cap_e], 1).values
-    eidx = torch.arange(cap_e, **i32).expand(B, cap_e)
-    valid = eidx < torch.clamp(ne, max=cap_e)[:, None]
-    if cap_v:
-        slot = eidx - starts.gather(1, owner.long())
-        src = vert.gather(1, owner.long())
-    else:
-        slot, src = eidx, torch.full((B, cap_e), V, **i32)
-    if E:
-        gidx = inc_ptr.gather(1, torch.clamp(src, max=V).long()) + slot
-        gdst = dst.gather(1, torch.clamp(gidx, 0, E - 1).long())
-    else:
-        gdst = torch.full((B, cap_e), fill, **i32)
-    return FrontierSlab(
-        vert=vert,
-        owner=torch.where(valid, owner, torch.full_like(owner, cap_v)),
-        src=torch.where(valid, src, torch.full_like(src, V)),
-        dst=torch.where(valid, gdst, torch.full_like(gdst, fill)),
-        slot=torch.where(valid, slot, torch.zeros_like(slot)),
-        nv=nv, ne=ne)
+    owner, src, gdst, slot = frontier_expand(vert, vdeg, starts, ne, inc_ptr,
+                                             dst, cap_e, dst_pad=dst_pad)
+    return FrontierSlab(vert=vert, owner=owner, src=src, dst=gdst, slot=slot,
+                        nv=nv, ne=ne)
 
 
 def frontier_sweep(mex_slab: SlabMexFn, *, key_v: torch.Tensor,

@@ -2,7 +2,7 @@
 // picks, for the static analyzer's budget pass (repro_torch.analysis.budgets)
 // and for chip_smoke.py. kernel: the kernel's position in
 // repro_torch.kernels.ops.KERNELS (0 firstfit, 1 round_fused, 2 conflict_mask,
-// 3 sorted_mex). out[6]:
+// 3 sorted_mex, 4 frontier_expand). out[6]:
 // registers per thread, static shared bytes, local (spill) bytes per thread,
 // the most threads a block of it may have, the block size the launcher asks
 // for, and the card's opt-in shared memory per block.
@@ -13,6 +13,7 @@ cudaError_t firstfit_attributes(int W, int D, cudaFuncAttributes* attr, int* thr
 cudaError_t round_fused_attributes(int W, int D, cudaFuncAttributes* attr, int* threads);
 cudaError_t conflict_attributes(cudaFuncAttributes* attr, int* threads);
 cudaError_t sorted_mex_attributes(cudaFuncAttributes* attr, int* threads);
+cudaError_t frontier_expand_attributes(cudaFuncAttributes* attr, int* threads);
 }  // namespace repro_torch
 
 extern "C" int repro_kernel_attributes(int kernel, int W, int D, int* out) {
@@ -28,6 +29,8 @@ extern "C" int repro_kernel_attributes(int kernel, int W, int D, int* out) {
     err = conflict_attributes(&attr, &threads);
   else if (kernel == 3)
     err = sorted_mex_attributes(&attr, &threads);
+  else if (kernel == 4)
+    err = frontier_expand_attributes(&attr, &threads);
   else
     err = cudaErrorInvalidValue;
   if (err != cudaSuccess) return static_cast<int>(err);

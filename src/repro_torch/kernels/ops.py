@@ -3,11 +3,12 @@
 The coloring algorithms reach the kernels only through the engine registry
 (``repro_torch.core.engine``: ``engine="ell_pallas"`` binds ``firstfit``,
 ``engine="fused_pallas"`` binds ``round_fused``, ``engine="sort"`` ends
-in ``sorted_mex``) and the Alg. 2 phase-2 conflict pass
-(``conflict_mask``). What lives here: the standalone slab helpers
-:func:`ell_gather_colors` and :func:`ell_mex` (serial-style mex over an ELL
-adjacency), :data:`KERNELS`, one entry per hand-written kernel (its CUDA
-source, the TPU kernel it replaces, its C entry's argtypes), the launch
+in ``sorted_mex``), the Alg. 2 phase-2 conflict pass (``conflict_mask``)
+and the frontier compaction (``frontier_expand``). What lives here: the
+standalone slab helpers :func:`ell_gather_colors` and :func:`ell_mex`
+(serial-style mex over an ELL adjacency), :data:`KERNELS`, one entry per
+hand-written kernel (its CUDA source, the TPU kernel it replaces, its C
+entry's argtypes), the launch
 counters that :func:`launch_counts` reads, :func:`kernel_attributes` (what
 the CUDA runtime reports for a kernel), and the hooks through which a
 running program reports to the static analyzer's recorder
@@ -97,6 +98,10 @@ KERNELS = (
     # the sort engine's segment-min; the reference takes XLA's segment_min
     Kernel("sorted_mex", "src/repro_torch/kernels/csrc/sorted_mex.cu", None,
            (_P, _P, _L, _I, _P, _P)),
+    # the frontier's row-owner flood; the reference takes XLA's lax.cummax
+    Kernel("frontier_expand", "src/repro_torch/kernels/csrc/frontier_expand.cu",
+           None, (_P, _L, _P, _L, _P, _L, _P, _P, _L, _P, _L, _I, _I, _I, _I,
+                  _I, _I, _P, _P, _P, _P, _P)),
 )
 
 # launches on the card by kernel name; _build.launch counts them

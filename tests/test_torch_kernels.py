@@ -183,7 +183,8 @@ def test_kernel_registry_names_sources_and_pallas_calls():
     """Every kernel names its CUDA source and, where it ports one, the
     reference line that holds the ``pl.pallas_call`` it replaces."""
     assert [k.name for k in KERNELS] == ["firstfit", "round_fused",
-                                         "conflict_mask", "sorted_mex"]
+                                         "conflict_mask", "sorted_mex",
+                                         "frontier_expand"]
     for k in KERNELS:
         assert (REPO / k.source).exists(), k.source
         if k.replaces is None:
