@@ -23,15 +23,26 @@ def card():
 
 def small(bench, cell, *, scale_oneshot=9, scale_served=8):
     """The cell's configuration and traffic at a size a CPU test holds:
-    smaller graphs, and for the service fewer clients and a smaller batch."""
+    smaller graphs at every request scale the configuration names
+    (``served`` at ``scale_served``, every other at ``scale_oneshot``); for
+    the service fewer clients and a smaller batch; for a stream (a traffic
+    with a ``batch``) batches cut in the graphs' proportion."""
     from portbench import harness
     w = harness.workload(bench, cell)
     config = harness.load_json("configs", w["config"])
     traffic = harness.load_json("traffic", w["traffic"])
-    config["scale"] = {"oneshot": scale_oneshot, "served": scale_served}
+    full = config["scale"]
+    config["scale"] = {k: scale_served if k == "served" else scale_oneshot
+                       for k in full}
     if traffic["driver"] == "service_loop":
         traffic.update(pool=6, clients=6, clients_per_tenant=2)
         traffic["service"]["max_batch"] = 3
     else:
-        traffic["pool"] = 2
+        traffic["pool"] = min(int(traffic["pool"]), 2)
+    if "batch" in traffic:
+        cut = 2.0 ** (config["scale"][traffic["request_scale"]]
+                      - full[traffic["request_scale"]])
+        batch = traffic["batch"] = dict(traffic["batch"])
+        for k in ("inserts", "deletes"):
+            batch[k] = max(1, round(int(batch[k]) * cut))
     return config, traffic

@@ -6,9 +6,13 @@
 For each seed: the cell's graphs as a run makes them, each colored by the
 configuration's control (the plain reference with one stated guarantee
 broken, in the program's place) and judged as a run judges the program's
-answers. Prints one JSON line per seed with the numbers compared and their
-limits. Not part of the benchmark's runs; it sets the upper readings that
-PERF.md gives beside each limit.
+answers. A stream's traffic (one with a ``batch`` of ``inserts``,
+``deletes`` and ``chain``) is followed along its chains instead: on each
+pool graph the control's cold answer, then ``chain`` batches drawn as a run
+draws them, each answered by ``control_after`` from the control's own
+previous state. Prints one JSON line per seed with the numbers compared and
+their limits. Not part of the benchmark's runs; it sets the upper readings
+that PERF.md gives beside each limit.
 """
 import argparse
 import json
@@ -19,6 +23,36 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path[:0] = [ROOT, os.path.join(ROOT, "src")]
 
 
+def judged_control(bench: dict, workload: str, seed: int, device, *,
+                   config=None, traffic=None) -> dict:
+    """The numbers compared for the control of ``workload`` on ``seed``:
+    cold answers on every pool graph and, for a stream, the traffic's
+    ``chain`` continued answers on each."""
+    from portbench import gen, harness, plain
+    w = harness.workload(bench, workload)
+    ref = harness.load_module(harness.HERE / "configs" / f"{w['config']}.py")
+    cell = harness.make_cell(bench, workload, seed, device, config, traffic)
+    stream = cell.traffic.get("batch")
+    answers = []
+    for i, csr in enumerate(cell.csrs):
+        got = ref.control(plain.to_device(csr, device), cell.config)
+        answers.append(harness.Answered(i, got.colors,
+                                        got.conflicts_per_round, None))
+        for step in range(int(stream["chain"]) if stream else 0):
+            ins, dels = gen.edge_batch(csr, int(stream["inserts"]),
+                                       int(stream["deletes"]), seed, i, step,
+                                       device)
+            after = plain.apply_delta(csr, ins, dels, device)
+            got = ref.control_after(plain.to_device(after, device),
+                                    cell.config,
+                                    plain.to_device(csr, device), got)
+            answers.append(harness.Answered(
+                i, got.colors, got.conflicts_per_round, None,
+                after=len(answers) - 1, inserts=ins, deletes=dels))
+            csr = after
+    return harness.judge(ref, cell.config, cell.csrs, answers, device)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--workload", required=True)
@@ -27,26 +61,17 @@ def main(argv=None) -> int:
 
     import torch
 
-    from portbench import harness, plain
+    from portbench import harness
     if not torch.cuda.is_available():
         print("portbench control: needs an NVIDIA card", file=sys.stderr)
         return 2
     dev = torch.device("cuda", 0)
     bench = harness.load_bench()
-    w = harness.workload(bench, args.workload)
-    ref = harness.load_module(harness.HERE / "configs" / f"{w['config']}.py")
     for seed in args.seeds:
-        cell = harness.make_cell(bench, args.workload, seed, dev)
-        answers = []
-        for i, c in enumerate(cell.csrs):
-            got = ref.control(plain.to_device(c, dev), cell.config)
-            answers.append(harness.Answered(i, got.colors,
-                                            got.conflicts_per_round, None))
-        checks = harness.judge(ref, cell.config, cell.csrs, answers, dev)
+        checks = judged_control(bench, args.workload, seed, dev)
         print(json.dumps({"workload": args.workload, "seed": seed,
                           "correct": harness.passed(checks),
                           "checks": checks}), flush=True)
-        del cell
         torch.cuda.empty_cache()
     return 0
 

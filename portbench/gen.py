@@ -7,13 +7,19 @@ symmetrises the edges and removes duplicates by one sort of int64 keys
 ``src * n + dst``. The sorted keys are the CSR: rows in id order, neighbours
 sorted within each row. One copy brings the CSR to the host.
 
+A stream of edge changes to such a graph is drawn batch by batch
+(:func:`edge_batch`), as the project's own stream benchmark draws them:
+inserts with both ends uniform over the vertices, deletes uniform without
+repeats over the edges present, each batch from a generator seeded by the
+run's seed, the chain and the batch's number.
+
 This is the benchmark's own generator: it does not call the program's
 ``rmat`` module and does not reproduce numpy's PCG64 stream. The same seed on
-the same device type gives the same graphs.
+the same device type gives the same graphs and the same batches.
 """
 from __future__ import annotations
 
-from typing import List, NamedTuple, Sequence
+from typing import List, NamedTuple, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -62,10 +68,16 @@ def rmat_csr(scale: int, edge_factor: int, params: Sequence[float],
         del src, dst, keep
     key = torch.unique(torch.cat(keys))                 # sorted, no repeats
     del keys
+    return csr_from_keys(key, n)
+
+
+def csr_from_keys(key: torch.Tensor, n: int) -> Csr:
+    """The CSR of the directed edge keys ``src * n + dst``, sorted and
+    without repeats, brought to the host in one copy each."""
     src = key // n
     col = (key - src * n).to(torch.int32)
     counts = torch.bincount(src, minlength=n)
-    row_ptr = torch.zeros(n + 1, dtype=torch.int64, device=device)
+    row_ptr = torch.zeros(n + 1, dtype=torch.int64, device=key.device)
     torch.cumsum(counts, 0, out=row_ptr[1:])
     return Csr(n, row_ptr.cpu().numpy(), col.cpu().numpy())
 
@@ -79,3 +91,37 @@ def make_pool(graph_cfg: dict, scale: int, count: int, seed: int,
     return [rmat_csr(scale, int(graph_cfg["edge_factor"]),
                      graph_cfg["params"], gen, device)
             for _ in range(count)]
+
+
+def _batch_seed(seed: int, chain: int, step: int) -> int:
+    """The generator seed of batch ``step`` of chain ``chain`` in a run of
+    ``seed``: mixed, so that no two batches and no pool share a stream."""
+    state = np.random.SeedSequence(
+        [int(seed) % (1 << 63), int(chain), int(step)]).generate_state(
+            1, np.uint64)
+    return int(state[0]) % (1 << 63)
+
+
+def edge_batch(csr: Csr, inserts: int, deletes: int, seed: int, chain: int,
+               step: int, device: torch.device
+               ) -> Tuple[np.ndarray, np.ndarray]:
+    """Batch ``step`` of chain ``chain`` of edge changes to ``csr``, the
+    graph as it stands before the batch: ``inserts`` pairs with both ends
+    uniform over the vertices (self-loops, repeats and present edges
+    included; they change nothing), and ``deletes`` distinct edges drawn
+    uniformly from those present (all of them where fewer are). Host
+    ``[M, 2]`` int64 arrays, each pair ``u < v`` among the deletes; the
+    vertex set stays as it is."""
+    n = csr.num_vertices
+    gen = torch.Generator(device=device)
+    gen.manual_seed(_batch_seed(seed, chain, step))
+    ins = torch.randint(0, n, (inserts, 2), generator=gen, device=device)
+    row_ptr = torch.from_numpy(np.asarray(csr.row_ptr, np.int64)).to(device)
+    src = torch.repeat_interleave(torch.arange(n, device=device),
+                                  row_ptr[1:] - row_ptr[:-1])
+    dst = torch.from_numpy(np.asarray(csr.col_idx)).to(device).long()
+    half = src < dst
+    present = torch.stack([src[half], dst[half]], 1)
+    pick = torch.randperm(present.shape[0], generator=gen,
+                          device=device)[:deletes]
+    return ins.cpu().numpy(), present[pick].cpu().numpy()

@@ -8,6 +8,25 @@ metric ``<stem>.<split>`` is read by ``metrics/<stem>.<split>.py`` or, where
 that file is absent, by ``metrics/<stem>.py``. Adding a cell, a traffic mix
 or a metric adds files and entries; no file here changes.
 
+A reference file defines ``reference(g, config)`` and ``control(g,
+config)``, each a :class:`portbench.plain.Answer` for a
+:class:`portbench.plain.DeviceCsr`. An answer is a cold request on a pool
+graph, or it continues an earlier answer's state: a stream's batch names the
+answer whose graph and colors it started from and carries the edge changes
+it applied. The judge replays such a chain with the reference file's
+``reference_after(g, config, before, prev)`` (``before`` the previous graph,
+``prev`` the reference's own answer there), each graph rebuilt from the
+records by :func:`portbench.plain.apply_delta`, and holds each answer to the
+reference's colors, not to the program's earlier ones. A stream's traffic
+gives ``batch: {inserts, deletes, chain}`` (``chain``: the batches
+``control.py`` follows on each pool graph, at least as many as a run's
+window makes). Its driver draws batch ``k`` after the cold start on pool
+graph ``i`` with ``gen.edge_batch(csr, ..., cell.seed, i, k, ...)`` from
+the harness's own chain (``csr`` the pool graph with the batches before
+applied by :func:`portbench.plain.apply_delta`, never the program's graph),
+so that a seed gives the same batches whatever the program does;
+``control.py`` draws the same batches for ``control_after``.
+
 :func:`run_cell` is a whole run but the look for a card: make the graphs
 from the seed, set the program up, drive the window (under the profiler
 when traced), free the program, judge every answer against the reference,
@@ -23,8 +42,9 @@ import json
 import sys
 import threading
 import time
+from collections import Counter
 from pathlib import Path
-from typing import Any, Dict, List, NamedTuple, Optional
+from typing import Any, Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -38,27 +58,39 @@ BANNED_MODULES = ("jax", "jaxlib", "flax", "repro")
 
 class Answered(NamedTuple):
     """One request's answer as its caller got it (``colors`` None: no
-    answer; ``error`` says why)."""
+    answer; ``error`` says why).
+
+    ``after`` None: a cold request on pool graph ``index``. Otherwise the
+    position, in the run's answers (the window's set-up answers first, then
+    its own), of the earlier answer whose graph and colors this one
+    continued; the graph is that one's with ``deletes`` and then
+    ``inserts`` applied (host ``[M, 2]`` endpoint arrays or None, set
+    semantics), and ``index`` names the chain's pool graph."""
 
     index: int                        # the pool graph it colored
     colors: Optional[np.ndarray]
     conflicts_per_round: Optional[np.ndarray]
     latency_s: Optional[float]
     error: Optional[str] = None
+    after: Optional[int] = None
+    inserts: Optional[np.ndarray] = None
+    deletes: Optional[np.ndarray] = None
 
 
 @dataclasses.dataclass
 class Window:
     """What a driver's window produced: its length, the graphs that count
     toward the end-to-end metric, every answer (in flight at the close
-    included), the end-to-end values by name, and counters read from the
-    program over the window."""
+    included), the end-to-end values by name, counters read from the
+    program over the window, and the answers made in set-up that the
+    window's continue from (judged, but counted toward nothing)."""
 
     seconds: float
     graphs: int
     answers: List[Answered]
     values: Dict[str, float]
     facts: Dict[str, float] = dataclasses.field(default_factory=dict)
+    setup_answers: List[Answered] = dataclasses.field(default_factory=list)
 
     @property
     def requests(self) -> int:
@@ -75,6 +107,7 @@ class Cell:
     csrs: List[gen.Csr]
     program_graphs: list
     recorder: Optional[trace.KernelLog] = None
+    seed: int = 0                     # the run's --seed (a stream's batches)
 
     def sync(self) -> None:
         if self.device.type == "cuda":
@@ -144,28 +177,79 @@ def metrics_of(bench: dict, kind: str, cell: str) -> List[dict]:
 # the judgement
 # --------------------------------------------------------------------------
 def judge(ref, config: dict, csrs: List[gen.Csr], answers: List[Answered],
-          device: torch.device) -> Dict[str, Dict[str, float]]:
+          device: torch.device, setup_answers: Sequence[Answered] = ()
+          ) -> Dict[str, Dict[str, float]]:
     """Every answer against the reference's coloring of its graph: the
-    numbers compared, each with its limit (all exact: limit 0)."""
+    numbers compared, each with its limit (all exact: limit 0).
+
+    Cold answers are judged per pool graph, its reference worked out once.
+    Continued answers are judged in order along their chains: each graph is
+    its predecessor's with the answer's edge changes applied, and its
+    reference is ``ref.reference_after(g, config, before, prev)`` from the
+    predecessor's graph and the reference's own answer there. A state is
+    kept only while a later answer still continues it. An answer whose
+    predecessor is not among the earlier answers, or whose configuration
+    has no ``reference_after``, counts as unanswered; so does every answer
+    that continues it. ``setup_answers`` come first in the positions that
+    ``after`` names, and are judged like the rest."""
+    seq = list(setup_answers) + list(answers)
+    waiting = Counter(a.after for a in seq if a.after is not None)
+    states: Dict[int, Tuple[gen.Csr, plain.Answer]] = {}
     wrong = bad = history = missing = 0
-    by_graph: Dict[int, List[Answered]] = {}
-    for a in answers:
-        if a.colors is None or not 0 <= a.index < len(csrs):
+
+    def score(g: plain.DeviceCsr, want: plain.Answer, a: Answered) -> None:
+        nonlocal wrong, bad, history, missing
+        if a.colors is None:
+            missing += 1
+            return
+        got = np.asarray(a.colors)
+        wrong += (int(np.count_nonzero(got != want.colors))
+                  if got.shape == want.colors.shape else g.n)
+        bad += plain.bad_edges(g, got)
+        if want.conflicts_per_round is not None and not np.array_equal(
+                np.asarray(a.conflicts_per_round), want.conflicts_per_round):
+            history += 1
+
+    by_graph: Dict[int, List[int]] = {}
+    for j, a in enumerate(seq):
+        if a.after is not None:
+            continue
+        if not 0 <= a.index < len(csrs) or (a.colors is None
+                                            and not waiting[j]):
             missing += 1
         else:
-            by_graph.setdefault(a.index, []).append(a)
+            by_graph.setdefault(a.index, []).append(j)
     for i, group in sorted(by_graph.items()):
         g = plain.to_device(csrs[i], device)
         want = ref.reference(g, config)
-        for a in group:
-            got = np.asarray(a.colors)
-            wrong += (int(np.count_nonzero(got != want.colors))
-                      if got.shape == want.colors.shape else g.n)
-            bad += plain.bad_edges(g, got)
-            if want.conflicts_per_round is not None and not np.array_equal(
-                    np.asarray(a.conflicts_per_round),
-                    want.conflicts_per_round):
-                history += 1
+        for j in group:
+            score(g, want, seq[j])
+            if waiting[j]:
+                states[j] = (csrs[i], want)
+        del g
+
+    after = getattr(ref, "reference_after", None)
+    for j, a in enumerate(seq):
+        if a.after is None:
+            continue
+        p = a.after
+        state = states.get(p) if after is not None and 0 <= p < j else None
+        if state is not None:
+            waiting[p] -= 1
+            if not waiting[p]:
+                del states[p]
+            try:
+                csr = plain.apply_delta(state[0], a.inserts, a.deletes, device)
+            except ValueError:
+                state = None
+        if state is None:
+            missing += 1
+            continue
+        g = plain.to_device(csr, device)
+        want = after(g, config, plain.to_device(state[0], device), state[1])
+        score(g, want, a)
+        if waiting[j]:
+            states[j] = (csr, want)
         del g
     return {"wrong_colors": {"value": wrong, "limit": 0},
             "bad_edges": {"value": bad, "limit": 0},
@@ -205,7 +289,7 @@ def make_cell(bench: dict, name: str, seed: int, device: torch.device,
     csrs = gen.make_pool(config["graph"], scale, int(traffic["pool"]), seed,
                          device)
     graphs = [Graph(c.num_vertices, c.row_ptr, c.col_idx) for c in csrs]
-    return Cell(name, config, traffic, device, csrs, graphs)
+    return Cell(name, config, traffic, device, csrs, graphs, seed=int(seed))
 
 
 def run_cell(name: str, seed: int, seconds: float, traced: bool,
@@ -254,7 +338,8 @@ def run_cell(name: str, seed: int, seconds: float, traced: bool,
           + "".join(f"; {k} {v}" for k, v in win.facts.items())
           + (f"; {len(errors)} unanswered, first: {errors[0]}" if errors
              else ""), file=sys.stderr)
-    checks = judge(ref, cell.config, cell.csrs, win.answers, device)
+    checks = judge(ref, cell.config, cell.csrs, win.answers, device,
+                   win.setup_answers)
     metrics = {}
     if traced:
         ctx = trace.ReadContext(window=win, trace=prof.parsed,

@@ -16,6 +16,10 @@ vertex of DAG depth below ``k`` holds its final value, and a sweep that
 changes nothing is at the solution. The mex of each sweep is taken over a
 dense ``[rows, colors]`` table in blocks of rows, so that a block stays under
 :data:`TABLE_CELLS` entries whatever the degree.
+
+A stream's graphs are rebuilt from the records of its batches by
+:func:`apply_delta`, with the set semantics the program documents for an
+edge delta.
 """
 from __future__ import annotations
 
@@ -23,6 +27,8 @@ from typing import List, NamedTuple, Optional
 
 import numpy as np
 import torch
+
+from portbench import gen
 
 TABLE_CELLS = 1 << 28
 
@@ -45,6 +51,51 @@ def to_device(csr, device) -> DeviceCsr:
     dst = torch.from_numpy(np.asarray(csr.col_idx)).to(device).long()
     return DeviceCsr(csr.num_vertices, row_ptr, src, dst,
                      int(deg.max()) if csr.num_vertices else 0)
+
+
+def _delta_keys(pairs, n: int, device) -> torch.Tensor:
+    """Both directed keys ``u * n + v`` of each pair of an ``[M, 2]`` array,
+    self-loops dropped."""
+    if pairs is None:
+        return torch.zeros(0, dtype=torch.int64, device=device)
+    e = torch.from_numpy(np.asarray(pairs, np.int64).reshape(-1, 2)).to(device)
+    if e.numel() and (int(e.min()) < 0 or int(e.max()) >= n):
+        raise ValueError(f"delta edge endpoint out of range [0, {n})")
+    e = e[e[:, 0] != e[:, 1]]
+    return torch.cat([e[:, 0] * n + e[:, 1], e[:, 1] * n + e[:, 0]])
+
+
+def apply_delta(csr, inserts, deletes, device) -> gen.Csr:
+    """The graph ``csr`` after one batch of edge changes, worked out on
+    ``device``: the deletes first, then the inserts, both ``[M, 2]``
+    endpoint arrays in either orientation (or None). Set semantics: repeats,
+    self-loops, inserts of present edges and deletes of absent ones change
+    nothing, and an edge in both lists ends present. The vertex set stays
+    as it is; an endpoint outside it raises ``ValueError``."""
+    n = csr.num_vertices
+    g = to_device(csr, device)
+    key = g.src * n + g.dst                           # ascending, no repeats
+    del g
+    key = key[~torch.isin(key, _delta_keys(deletes, n, device))]
+    key = torch.unique(torch.cat([key, _delta_keys(inserts, n, device)]))
+    return gen.csr_from_keys(key, n)
+
+
+def stale_ends(g: DeviceCsr, before: DeviceCsr,
+               colors: np.ndarray) -> np.ndarray:
+    """[V] bool: the ends of each edge of ``g`` absent from ``before`` whose
+    two ends share a color under ``colors`` (the previous state's): what a
+    batch leaves to repair, as a streaming recolor seeds it."""
+    n, dev = g.n, g.src.device
+    fresh = ~torch.isin(g.src * n + g.dst, before.src * n + before.dst)
+    fresh &= g.src < g.dst
+    c = torch.from_numpy(np.asarray(colors, np.int32)).to(dev)
+    u, v = g.src[fresh], g.dst[fresh]
+    hit = c[u] == c[v]
+    ends = torch.zeros(n, dtype=torch.bool, device=dev)
+    ends[u[hit]] = True
+    ends[v[hit]] = True
+    return ends.cpu().numpy()
 
 
 def mex_rows(n: int, fsrc: torch.Tensor, fcol: torch.Tensor,
@@ -95,8 +146,9 @@ class Answer(NamedTuple):
     conflicts_per_round: Optional[np.ndarray]
 
 
-def iterative(g: DeviceCsr, concurrency: int,
-              repair: bool = True) -> Answer:
+def iterative(g: DeviceCsr, concurrency: int, repair: bool = True,
+              colors: Optional[np.ndarray] = None,
+              pending: Optional[np.ndarray] = None) -> Answer:
     """Alg. 2 (speculation and iteration) in the lockstep model of ``P =
     concurrency`` OpenMP-static threads. Each round: pending vertices take
     ``offset = rank mod ceil(|U| / P)`` (rank within the pending set); their
@@ -104,10 +156,18 @@ def iterative(g: DeviceCsr, concurrency: int,
     forbids ``v`` iff ``w`` is committed or pending at a smaller offset;
     then every pending vertex with a pending neighbour of smaller id and
     the same color stays pending. ``repair=False`` stops after the first
-    round and keeps its conflicts (a control, not Alg. 2)."""
+    round and keeps its conflicts (a control, not Alg. 2).
+
+    The start is cold (no colors, every vertex pending) unless ``colors``
+    ([V] committed colors) and ``pending`` ([V] bool: the vertices to
+    recolor) give a warm one; with nothing pending no round runs."""
     n, src, dst = g.n, g.src, g.dst
-    colors = torch.zeros(n, dtype=torch.int32, device=src.device)
-    pending = torch.ones(n, dtype=torch.bool, device=src.device)
+    colors = (torch.zeros(n, dtype=torch.int32, device=src.device)
+              if colors is None else torch.from_numpy(
+                  np.asarray(colors, np.int32)).to(src.device))
+    pending = (torch.ones(n, dtype=torch.bool, device=src.device)
+               if pending is None else torch.from_numpy(
+                   np.asarray(pending, np.bool_)).to(src.device))
     history: List[int] = []
     while bool(pending.any()):
         left = int(pending.sum())

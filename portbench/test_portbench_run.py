@@ -116,9 +116,12 @@ def test_small_cell_on_the_card(card, cell):
                            config=config, traffic=traffic)
     assert out["correct"] is True
     assert out["device"]["busy_s"] > 0
-    roof = [v["value"] for k, v in out["metrics"].items()
-            if k.startswith("round_fused_roofline")]
-    assert roof and 0 < roof[0] <= 105
+    # a roofline share only of cells that list one (b21.oneshot launches no
+    # round_fused)
+    listed = [m["name"] for m in harness.metrics_of(BENCH, "per_layer", cell)
+              if m["name"].startswith("round_fused_roofline")]
+    for name in listed:
+        assert 0 < out["metrics"][name]["value"] <= 105
     assert np.isfinite(out["device"]["window_s"])
 
 
