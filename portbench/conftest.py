@@ -4,6 +4,10 @@ import sys
 import pytest
 import torch
 
+# the per-cell checks are plain functions the tests call: rewrite their
+# asserts as pytest does a test's
+pytest.register_assert_rewrite("portbench.cell_checks")
+
 # the harness runs the port from the checkout's src/, as run.py does
 _SRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                     "src")

@@ -9,8 +9,9 @@ From the root of a checkout, on the card. Runs the cell as
 ``repro_torch.kernels.ops.summary()``, each span's count, total and self
 time per graph served, beside the trace's idle time by sampled host frame;
 last, the checks that tie the span metrics to what is measured from
-outside (layout and sync within the window, layout against the idle time
-under the layout frames of ``core/graph.py``, queue wait against the tail).
+outside (layout and sync within the window where requests do not queue,
+layout against the idle time under the layout frames of ``core/graph.py``,
+queue wait against the tail where they do).
 A program that records no spans prints the result line alone. Everything
 printed is also written to ``results/spans/<cell>-<seed>.json`` under the
 checkout.
@@ -57,8 +58,10 @@ def per_graph(out: dict, summary: dict) -> dict:
         checks["layout_vs_layout_frames_idle"] = {
             "layout_ms_per_graph": layout, "frames_idle_ms_per_graph": frames,
             "ratio": layout / frames if frames else None}
-        if stem == "oneshot":
-            sync = m[f"sync_wait_ms_per_graph.{stem}"]
+        sync = m.get(f"sync_wait_ms_per_graph.{stem}")
+        # without a queue, requests run back to back from one caller: their
+        # layout and sync waits fit in the window's time per graph
+        if "queue_wait_ms" not in m and sync is not None:
             checks["layout_plus_sync_within_window"] = {
                 "sum_ms": layout + sync,
                 "window_ms_per_graph":

@@ -8,18 +8,11 @@ import sys
 
 import pytest
 
-from portbench import harness
+from portbench import cell_checks, harness
 
-NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
-UNIT = re.compile(r"^[A-Za-z0-9_/%.-]{1,16}$")
 PATH = re.compile(r"^[A-Za-z0-9_./-]{1,200}$")
-SOURCES = ("device_trace", "program_span", "program_counter", "host_clock")
 BENCH = harness.load_bench()
 CELLS = [w["name"] for w in BENCH["workloads"]]
-
-
-def _line(text):
-    return 1 <= len(text) <= 200 and "\n" not in text and "\t" not in text
 
 
 def test_top_level_keys_and_command():
@@ -36,70 +29,58 @@ def test_top_level_keys_and_command():
 
 @pytest.mark.parametrize("entry", BENCH["configs"], ids=lambda c: c["name"])
 def test_config_entry(entry):
-    assert set(entry) == {"name", "source", "file", "reduced", "why"}
-    assert NAME.match(entry["name"]) and _line(entry["source"])
-    assert _line(entry["why"])
-    assert entry["file"] == f"portbench/configs/{entry['name']}.json"
-    cfg = harness.load_json("configs", entry["name"])
-    assert cfg["name"] == entry["name"] and cfg["source"] == entry["source"]
-    assert sorted(entry["reduced"]) == sorted(cfg["reduced"])
-    assert all(NAME.match(k) for k in entry["reduced"])
-    assert cfg["scale"] and all(s <= cfg["published_scale"]
-                                for s in cfg["scale"].values())
-    ref = harness.load_module(harness.HERE / "configs" / f"{entry['name']}.py")
-    assert callable(ref.reference) and callable(ref.control)
-    assert any(w["config"] == entry["name"] for w in BENCH["workloads"])
+    cell_checks.config_entry(BENCH, entry)
 
 
 @pytest.mark.parametrize("cell", CELLS)
 def test_workload_entry(cell):
-    w = harness.workload(BENCH, cell)
-    assert set(w) == {"name", "config", "traffic", "chips", "why"}
-    assert NAME.match(w["name"]) and NAME.match(w["traffic"])
-    assert w["chips"] == 1 and _line(w["why"])
-    assert w["config"] in [c["name"] for c in BENCH["configs"]]
-    traffic = harness.load_json("traffic", w["traffic"])
-    assert (harness.HERE / "drivers" / f"{traffic['driver']}.py").exists()
-    config = harness.load_json("configs", w["config"])
-    assert traffic["request_scale"] in config["scale"]
-    e2e = [m["name"] for m in harness.metrics_of(BENCH, "end_to_end", cell)]
-    assert "setup_s" in e2e and len(e2e) >= 2
-    assert harness.metrics_of(BENCH, "per_layer", cell)
-    pairs = [(x["config"], x["traffic"]) for x in BENCH["workloads"]]
-    assert pairs.count((w["config"], w["traffic"])) == 1
+    cell_checks.workload_entry(BENCH, cell)
 
 
 @pytest.mark.parametrize("metric", BENCH["end_to_end"] + BENCH["per_layer"],
                          ids=lambda m: m["name"])
 def test_metric_entry(metric):
-    per_layer = metric in BENCH["per_layer"]
-    keys = ({"name", "unit", "better", "source", "layer", "moves"} if per_layer
-            else {"name", "unit", "better", "bound", "source"})
-    assert set(metric) - {"workloads"} == keys
-    assert NAME.match(metric["name"]) and UNIT.match(metric["unit"])
-    assert metric["better"] in ("lower", "higher")
-    assert metric["source"] in SOURCES
-    assert all(c in CELLS for c in metric.get("workloads", []))
-    names = [m["name"] for m in BENCH["end_to_end"] + BENCH["per_layer"]]
-    assert names.count(metric["name"]) == 1
-    if per_layer:
-        assert _line(metric["layer"])
-        moved = [m for m in BENCH["end_to_end"] if m["name"] == metric["moves"]]
-        assert moved, metric["moves"]
-        # every cell that reads this metric reports the metric it moves
-        for cell in metric["workloads"]:
-            assert cell in moved[0].get("workloads", CELLS)
-        reader = harness.load_module(harness.reader_path(metric["name"]))
-        assert callable(reader.read)
-    else:
-        assert metric["source"] in ("host_clock", "device_trace")
-        assert 0.01 <= metric["bound"] <= 0.25
+    cell_checks.metric_entry(BENCH, metric)
 
 
 def test_layers_share_one_spelling():
-    layers = {m["layer"] for m in BENCH["per_layer"]}
-    assert layers == {"service", "plan and host layout", "round loop",
-                      "engine sweep", "kernels", "device"}
+    cell_checks.layers(BENCH)
+
+
+LATER_LAYERS = {
+    "none": ([], True),
+    "new": (["delta step"], True),
+    "two-new": (["delta-step", "stream delta"], True),
+    "upper-case": (["Delta step"], False),
+    "two-spellings": (["delta step", "delta-step"], False),
+    "six-respelled": (["plan and host-layout"], False),
+    "six-capitalised": (["Round loop"], False),
+    "double-space": (["round  loop"], False),
+    "trailing-space": (["delta step "], False),
+}
+
+
+@pytest.mark.parametrize("case", LATER_LAYERS)
+def test_a_later_layer_is_spelled_one_way(case):
+    # a layer beside the six of PERF.md is a lower-case phrase that no other
+    # name equals once case, spaces and hyphens are dropped
+    names, ok = LATER_LAYERS[case]
+    six = [m for m in BENCH["per_layer"] if m["layer"] in cell_checks.LAYERS]
+    bench = dict(BENCH, per_layer=six + [dict(six[0], name=f"x{i}", layer=n)
+                                         for i, n in enumerate(names)])
+    if ok:
+        cell_checks.layers(bench)
+    else:
+        with pytest.raises(AssertionError):
+            cell_checks.layers(bench)
+
+
+def test_the_six_layers_stay():
+    for layer in cell_checks.LAYERS:
+        bench = dict(BENCH, per_layer=[m for m in BENCH["per_layer"]
+                                       if m["layer"] != layer])
+        with pytest.raises(AssertionError):
+            cell_checks.layers(bench)
 
 
 def test_every_traffic_and_reader_file_loads():

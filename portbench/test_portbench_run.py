@@ -2,57 +2,21 @@
 sizes: the result line carries the contract's keys with names and units of
 the allowed characters, and a run whose timed path is broken underneath
 comes out not correct."""
-import json
-import re
-
-import numpy as np
 import pytest
 import torch
 
-from portbench import harness
-from portbench.conftest import small
+from portbench import cell_checks, harness
 
 BENCH = harness.load_bench()
 CELLS = [w["name"] for w in BENCH["workloads"]]
-CPU = torch.device("cpu")
-NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
-UNIT = re.compile(r"^[A-Za-z0-9_/%.-]{1,16}$")
 SEED = 2**31 + 17
-
-
-def _run(cell, traced, seconds=0.4):
-    config, traffic = small(BENCH, cell)
-    return harness.run_cell(cell, SEED, seconds, traced, CPU, bench=BENCH,
-                            config=config, traffic=traffic)
 
 
 @pytest.mark.parametrize("traced", [False, True], ids=["trace0", "trace1"])
 @pytest.mark.parametrize("cell", CELLS)
 def test_result_line(cell, traced):
-    out = _run(cell, traced)
-    line = json.loads(json.dumps(out))
-    assert list(line)[:5] == ["correct", "attempted", "failed", "metrics",
-                              "device"]
-    assert list(line)[-1] == "checks"
-    assert line["correct"] is True and line["failed"] == 0
-    assert line["attempted"] >= 1
-    kind = "per_layer" if traced else "end_to_end"
-    named = {m["name"]: m["unit"] for m in harness.metrics_of(BENCH, kind,
-                                                              cell)}
-    for name, m in line["metrics"].items():
-        assert NAME.match(name) and UNIT.match(m["unit"])
-        assert named[name] == m["unit"] and isinstance(m["value"], float)
-    if not traced:
-        assert set(line["metrics"]) == set(named)
-        assert all(m["value"] > 0 for m in line["metrics"].values())
-    else:
-        assert {"busy_s", "window_s"} <= set(line["device"])
-        assert set(line["breakdown"]) == {"device_ops", "idle_gaps"}
-        assert all(len(v) <= 10 for v in line["breakdown"].values())
-    for name, c in line["checks"].items():
-        assert NAME.match(name) and c == {"value": 0, "limit": 0}
-    assert set(line["device"]) >= {"platform", "kind", "count",
-                                   "memory_peak_bytes"}
+    out, _ = cell_checks.run_small(BENCH, cell, SEED, traced)
+    cell_checks.result_line(BENCH, cell, out, traced)
 
 
 def _state_unchanged(monkeypatch):
@@ -103,7 +67,7 @@ FAULTS = [("er22.oneshot", _state_unchanged), ("g22.oneshot", _state_unchanged),
                          ids=[f"{c}-{f.__name__[1:]}" for c, f in FAULTS])
 def test_broken_timed_path_is_not_correct(cell, fault, monkeypatch):
     fault(monkeypatch)
-    out = _run(cell, False)
+    out, _ = cell_checks.run_small(BENCH, cell, SEED, False)
     assert out["correct"] is False
     assert out["checks"]["wrong_colors"]["value"] > 0
 
@@ -111,18 +75,9 @@ def test_broken_timed_path_is_not_correct(cell, fault, monkeypatch):
 @pytest.mark.cuda
 @pytest.mark.parametrize("cell", CELLS)
 def test_small_cell_on_the_card(card, cell):
-    config, traffic = small(BENCH, cell, scale_oneshot=14, scale_served=12)
-    out = harness.run_cell(cell, SEED, 1.0, True, card, bench=BENCH,
-                           config=config, traffic=traffic)
-    assert out["correct"] is True
-    assert out["device"]["busy_s"] > 0
-    # a roofline share only of cells that list one (b21.oneshot launches no
-    # round_fused)
-    listed = [m["name"] for m in harness.metrics_of(BENCH, "per_layer", cell)
-              if m["name"].startswith("round_fused_roofline")]
-    for name in listed:
-        assert 0 < out["metrics"][name]["value"] <= 105
-    assert np.isfinite(out["device"]["window_s"])
+    out, _ = cell_checks.run_small(BENCH, cell, SEED, True, 1.0, card,
+                                   scale_oneshot=14, scale_served=12)
+    cell_checks.card_run(BENCH, cell, out)
 
 
 def test_a_flush_that_raises_is_unanswered(monkeypatch):
@@ -138,6 +93,6 @@ def test_a_flush_that_raises_is_unanswered(monkeypatch):
 
     monkeypatch.setattr(ColoringPlan, "map", boom)
     monkeypatch.setattr(ColoringPlan, "__call__", boom)
-    out = _run("er19.served", False)
+    out, _ = cell_checks.run_small(BENCH, "er19.served", SEED, False)
     assert out["correct"] is False and out["failed"] > 0
     assert out["checks"]["unanswered"]["value"] == out["failed"]

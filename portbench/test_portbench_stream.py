@@ -2,7 +2,10 @@
 against the program's own, the seeded batch maker, the judge along a chain
 of continued answers, the test sizes of every request scale, and a whole
 run and control of a stream cell whose files are all written outside the
-benchmark's folder (so that such a cell needs only new files)."""
+benchmark's folder, which passes every per-cell check the benchmark's
+tests apply to its own cells (so that such a cell needs only new files and
+entries)."""
+import copy
 import gc
 import json
 import textwrap
@@ -12,7 +15,7 @@ import numpy as np
 import pytest
 import torch
 
-from portbench import gen, harness, plain
+from portbench import cell_checks, gen, harness, plain
 from portbench.conftest import small
 
 CPU = torch.device("cpu")
@@ -342,16 +345,7 @@ def test_two_chains_interleaved_keep_a_state_each():
 # --------------------------------------------------------------------------
 @pytest.mark.parametrize("cell", [w["name"] for w in BENCH["workloads"]])
 def test_small_keeps_the_cells_test_sizes(cell):
-    w = harness.workload(BENCH, cell)
-    rs = harness.load_json("traffic", w["traffic"])["request_scale"]
-    for kw, want in (({}, {"oneshot": 9, "served": 8}),
-                     ({"scale_oneshot": 14, "scale_served": 12},
-                      {"oneshot": 14, "served": 12})):
-        config, traffic = small(BENCH, cell, **kw)
-        assert config["scale"][rs] == want[rs]
-        assert set(config["scale"]) == set(
-            harness.load_json("configs", w["config"])["scale"])
-        assert traffic["pool"] == (6 if rs == "served" else 2)
+    cell_checks.sizes(BENCH, cell)
 
 
 # --------------------------------------------------------------------------
@@ -456,10 +450,16 @@ def read(ctx):
 '''
 
 
+TOY_CELL = "toy.stream"
+
+
 @pytest.fixture
 def stream_bench(tmp_path, monkeypatch):
-    """A stream cell whose configuration, reference, traffic, driver and
-    reader are all new files, outside the benchmark's folder."""
+    """``BENCHMARK.json`` with a stream cell added as a later change adds
+    one: its configuration, reference, traffic, driver and a reader in a new
+    layer as new files, outside the benchmark's folder (with copies of the
+    readers its ``.stream`` metrics resolve to), and entries that carry
+    every key a real entry carries."""
     er = harness.load_json("configs", "rmat-er.iterative")
     config = dict(er, name="toy.stream-config",
                   scale={"oneshot": 22, "served": 19, "stream": 20},
@@ -467,31 +467,59 @@ def stream_bench(tmp_path, monkeypatch):
     traffic = {"name": "toy-stream", "driver": "toy_stream",
                "request_scale": "stream", "pool": 1,
                "batch": {"inserts": 65536, "deletes": 16384, "chain": 3}}
+    bench = copy.deepcopy(BENCH)
+    bench["configs"].append({
+        "name": config["name"], "source": er["source"],
+        "file": f"portbench/configs/{config['name']}.json",
+        "reduced": sorted(er["reduced"]),
+        "why": "a throwaway stream: recolor warm starts from committed "
+               "colors and a seed set of each batch's new conflicts"})
+    bench["workloads"].append({
+        "name": TOY_CELL, "config": config["name"], "traffic": "toy-stream",
+        "chips": 1, "why": "1 caller, one live RMAT-ER graph, batches of "
+                           "inserts and deletes one after another"})
+    for m in bench["end_to_end"]:
+        if m["name"] == "color_s":
+            m["workloads"].append(TOY_CELL)
+    bench["per_layer"].append({
+        "name": "toy_batches", "unit": "batches", "better": "higher",
+        "source": "program_counter", "layer": "toy delta step",
+        "moves": "color_s", "workloads": [TOY_CELL]})
+    # the .stream span metrics: the cell joins an entry that is there, or
+    # brings its own
+    for name, layer in (("layout_ms_per_graph.stream", "plan and host layout"),
+                        ("sync_wait_ms_per_graph.stream", "round loop")):
+        have = [m for m in bench["per_layer"] if m["name"] == name]
+        if not have:
+            have = [{"name": name, "unit": "ms/graph", "better": "lower",
+                     "source": "program_span", "layer": layer,
+                     "moves": "color_s", "workloads": []}]
+            bench["per_layer"] += have
+        have[0].get("workloads", []).append(TOY_CELL)
     files = {"configs/toy.stream-config.json": json.dumps(config),
              "configs/toy.stream-config.py": TOY_REFERENCE,
              "traffic/toy-stream.json": json.dumps(traffic),
              "drivers/toy_stream.py": TOY_DRIVER,
              "metrics/toy_batches.py": TOY_READER}
+    for m in harness.metrics_of(bench, "per_layer", TOY_CELL):
+        if m["name"] != "toy_batches":
+            path = harness.reader_path(m["name"])
+            files[f"metrics/{path.name}"] = path.read_text()
     for rel, text in files.items():
         path = tmp_path / rel
         path.parent.mkdir(parents=True, exist_ok=True)
         path.write_text(textwrap.dedent(text))
     monkeypatch.setattr(harness, "HERE", tmp_path)
-    return {"configs": [{"name": "toy.stream-config"}],
-            "workloads": [{"name": "toy.stream", "config": "toy.stream-config",
-                           "traffic": "toy-stream", "chips": 1}],
-            "end_to_end": [{"name": "color_s", "unit": "s"},
-                           {"name": "setup_s", "unit": "s"}],
-            "per_layer": [{"name": "toy_batches", "unit": "batches"}]}
+    return bench
 
 
 def test_small_shrinks_every_request_scale(stream_bench):
-    config, traffic = small(stream_bench, "toy.stream")
+    config, traffic = small(stream_bench, TOY_CELL)
     assert config["scale"] == {"oneshot": 9, "served": 8, "stream": 9}
     assert traffic["pool"] == 1
     assert traffic["batch"] == {"inserts": 65536 >> 11, "deletes": 16384 >> 11,
                                 "chain": 3}
-    config, traffic = small(stream_bench, "toy.stream", scale_oneshot=14,
+    config, traffic = small(stream_bench, TOY_CELL, scale_oneshot=14,
                             scale_served=12)
     assert config["scale"] == {"oneshot": 14, "served": 12, "stream": 14}
     assert traffic["batch"] == {"inserts": 65536 >> 6, "deletes": 16384 >> 6,
@@ -500,8 +528,8 @@ def test_small_shrinks_every_request_scale(stream_bench):
 
 @pytest.mark.parametrize("traced", [False, True], ids=["trace0", "trace1"])
 def test_a_stream_cell_of_new_files_runs_and_is_judged(stream_bench, traced):
-    config, traffic = small(stream_bench, "toy.stream")
-    out = harness.run_cell("toy.stream", SEED, 0.3, traced, CPU,
+    config, traffic = small(stream_bench, TOY_CELL)
+    out = harness.run_cell(TOY_CELL, SEED, 0.3, traced, CPU,
                            bench=stream_bench, config=config,
                            traffic=traffic)
     assert out["correct"] is True, out["checks"]
@@ -511,6 +539,34 @@ def test_a_stream_cell_of_new_files_runs_and_is_judged(stream_bench, traced):
     if traced:
         # the set-up's cold start and warm batch count toward nothing
         assert out["metrics"]["toy_batches"]["value"] == out["attempted"]
+
+
+GUARD = ["entries", "sizes", "readers_without_spans", "result_line-trace0",
+         "result_line-trace1", "span_metrics", "span_table"]
+
+
+@pytest.mark.parametrize("check", GUARD)
+def test_a_stream_cell_of_new_entries_passes_every_per_cell_check(
+        stream_bench, check, monkeypatch):
+    # every check the tests apply to BENCHMARK.json's cells, on a cell of a
+    # traffic kind they have not seen: a request scale of its own, no
+    # queue, a new layer among its metrics
+    bench, cell = stream_bench, TOY_CELL
+    if check == "entries":
+        cell_checks.entries(bench, cell)
+    elif check == "sizes":
+        cell_checks.sizes(bench, cell)
+    elif check == "readers_without_spans":
+        cell_checks.readers_without_spans(bench, cell, monkeypatch)
+    else:
+        traced = check != "result_line-trace0"
+        out, summary = cell_checks.run_small(bench, cell, SEED, traced, 0.3)
+        if check.startswith("result_line"):
+            cell_checks.result_line(bench, cell, out, traced)
+        elif check == "span_metrics":
+            cell_checks.span_metrics(bench, cell, out)
+        else:
+            cell_checks.span_table(bench, cell, out, summary)
 
 
 def test_a_stale_stream_answer_is_not_correct(stream_bench, monkeypatch):
@@ -525,8 +581,8 @@ def test_a_stale_stream_answer_is_not_correct(stream_bench, monkeypatch):
         return rep
 
     monkeypatch.setattr(DynamicColoring, "apply_batch", stale)
-    config, traffic = small(stream_bench, "toy.stream")
-    out = harness.run_cell("toy.stream", SEED, 0.3, False, CPU,
+    config, traffic = small(stream_bench, TOY_CELL)
+    out = harness.run_cell(TOY_CELL, SEED, 0.3, False, CPU,
                            bench=stream_bench, config=config,
                            traffic=traffic)
     assert out["correct"] is False
@@ -535,8 +591,8 @@ def test_a_stale_stream_answer_is_not_correct(stream_bench, monkeypatch):
 
 def test_a_stream_cells_control_runs_along_its_chain(stream_bench):
     from portbench import control
-    config, traffic = small(stream_bench, "toy.stream")
-    checks = control.judged_control(stream_bench, "toy.stream", SEED, CPU,
+    config, traffic = small(stream_bench, TOY_CELL)
+    checks = control.judged_control(stream_bench, TOY_CELL, SEED, CPU,
                                     config=config, traffic=traffic)
     assert not harness.passed(checks)
     assert checks["wrong_colors"]["value"] > 0
@@ -561,13 +617,12 @@ def test_a_stream_on_the_card(card, stream_bench):
         ins, dels)
     assert np.array_equal(got.row_ptr, want.row_ptr)
     assert np.array_equal(got.col_idx, want.col_idx)
-    config, traffic = small(stream_bench, "toy.stream", scale_oneshot=14,
-                            scale_served=12)
-    out = harness.run_cell("toy.stream", SEED, 1.0, True, card,
-                           bench=stream_bench, config=config,
-                           traffic=traffic)
-    assert out["correct"] is True and out["attempted"] >= 1
-    assert out["device"]["busy_s"] > 0
-    checks = control.judged_control(stream_bench, "toy.stream", SEED, card,
+    sizes = {"scale_oneshot": 14, "scale_served": 12}
+    out, _ = cell_checks.run_small(stream_bench, TOY_CELL, SEED, True, 1.0,
+                                   card, **sizes)
+    assert out["attempted"] >= 1
+    cell_checks.card_run(stream_bench, TOY_CELL, out)
+    config, traffic = small(stream_bench, TOY_CELL, **sizes)
+    checks = control.judged_control(stream_bench, TOY_CELL, SEED, card,
                                     config=config, traffic=traffic)
     assert not harness.passed(checks)
